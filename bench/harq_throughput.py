@@ -1,17 +1,18 @@
-"""HARQ IR combining overhead vs single-rv decode (VERDICT r4 item 3).
+"""HARQ IR combining overhead vs single-rv decode.
 
 Measures the PRODUCTION HARQ decoder (``make_batch_harq_decoder_pallas``:
-two per-transmission fronts + d-domain soft-combine + one Pallas turbo
-batch) against the single-rv decoder at the SAME 20 MHz / MCS 28 geometry
-and batch, on the real chip.  The interesting number is the combining
-OVERHEAD: the HARQ front runs n_tx fronts and is pinned to the d-domain
-boundary (``planar_boundary=False`` — the planar statics can't ride a SUM
-of fronts), so the expected cost is ~n_tx times the front stage plus the
-de-match materialization, with the turbo stage unchanged.
+two per-transmission fronts + d-domain soft-combine + one turbo batch)
+against the single-rv decoder at the SAME 20 MHz / MCS 28 geometry and
+batch.  The interesting number is the combining OVERHEAD: the HARQ front
+runs n_tx fronts and is pinned to the d-domain boundary (the planar
+statics can't ride a SUM of fronts), so the expected cost is ~n_tx times
+the front stage plus the de-match materialization, with the turbo stage
+unchanged.
 
     python bench/harq_throughput.py [--batch 384] [--snr-db 25]
 
 Prints one JSON line: combined Mbit/s, single-rv Mbit/s, overhead ratio.
+Fails without a GPU.
 (reference capability: ``liblte/src/liblte_phy.cc :: rate_unmatch_turbo``
 circular-buffer soft-combine.)
 """
@@ -21,7 +22,6 @@ import argparse
 import json
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -35,93 +35,27 @@ def main():
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--depth", type=int, default=2)
     a = ap.parse_args()
-
+    from lteax.utils.device import bench_device
+    device = bench_device()
     import jax
     import jax.numpy as jnp
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/lteax_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 10)
-    except Exception:
-        pass
-    from lteax.phy.config import PhyConfig
-    from lteax.phy import seq
-    from lteax.phy.grid import crs_flat_idx, crs_symbols, pdsch_flat_idx
-    from lteax.phy.ofdm import subframe_to_samples
-    from lteax.phy.channels import pdsch as pdsch_mod
-    from lteax.phy.tables.tbs import get_tbs_for_mcs
+    from bench.common import time_batches
     from lteax.shard.pipeline import (make_batch_decoder_pallas,
                                       make_batch_harq_decoder_pallas)
-    from lteax.io.iq import to_iq_bf16
+    from lteax.sim.batches import dl_batch
 
-    cfg = PhyConfig(n_rb_dl=100)
-    cid, rnti, mcs, cfi = 214, 0x1234, 28, 1
-    prbs = tuple(range(100))
-    tbs, scheme = get_tbs_for_mcs(mcs, 100)
     b = a.batch
-    subframes, rvs = (1, 2), (0, 2)
-    geoms = tuple(pdsch_mod.pdsch_geometry(
-        tbs, len(pdsch_flat_idx(cfg, cid, cfi, prbs, sf)), 6, rv)
-        for sf, rv in zip(subframes, rvs))
-
-    rng = np.random.default_rng(0)
-    b_uniq = min(b, 32)
-    tb_bits = rng.integers(0, 2, size=(b_uniq, tbs)).astype(np.int32)
-    nv = 10 ** (-a.snr_db / 10)
-    cpu = jax.devices("cpu")[0]
-    print(f"building {b_uniq} unique subframes x {len(rvs)} rvs "
-          f"(tiled to {b})...", file=sys.stderr)
-    xs = []
-    with jax.default_device(cpu):
-        cbs = np.stack([pdsch_mod.pdsch_prepare_cbs(tb_bits[i], geoms[0])
-                        for i in range(b_uniq)])
-        for sf, geom in zip(subframes, geoms):
-            re_idx = pdsch_flat_idx(cfg, cid, cfi, prbs, sf)
-            crs_idx = crs_flat_idx(cfg, cid, 0)
-            vals = []
-            for sym in crs_symbols(0, cfg):
-                slot = sym // cfg.n_sym_slot
-                vals.append(seq.crs_values(cid, 2 * sf + slot,
-                                           sym % cfg.n_sym_slot, cfg.n_rb_dl))
-            enc = jax.jit(jax.vmap(lambda cb, g=geom, s=sf:
-                                   pdsch_mod.pdsch_encode_cbs(
-                                       cb, g, rnti, s, cid, scheme)),
-                          device=cpu)
-            syms = np.asarray(enc(jnp.asarray(cbs)))
-            grids = np.zeros((b_uniq, cfg.n_sym_subframe * cfg.n_sc),
-                             np.complex64)
-            grids[:, crs_idx] = np.concatenate(vals)
-            grids[:, np.asarray(re_idx)] = syms
-            x = np.asarray(subframe_to_samples(jnp.asarray(
-                grids.reshape(b_uniq, cfg.n_sym_subframe, cfg.n_sc)), cfg))
-            x = np.tile(x, (b // b_uniq + (1 if b % b_uniq else 0), 1))[:b]
-            x = x + (rng.standard_normal(x.shape)
-                     + 1j * rng.standard_normal(x.shape)) * np.sqrt(nv / 2)
-            xs.append(np.asarray(to_iq_bf16(x)))
-    tb_ref = np.tile(tb_bits, (b // b_uniq + (1 if b % b_uniq else 0), 1))[:b]
-    xd = jax.device_put(jnp.asarray(np.stack(xs)))
-
-    dec_h = make_batch_harq_decoder_pallas(cfg, cid, cfi, prbs, subframes,
-                                           rnti, geoms, scheme, n_iter=6)
-    dec_1 = make_batch_decoder_pallas(cfg, cid, cfi, prbs, subframes[0],
-                                      rnti, geoms[0], scheme, n_iter=6)
-
-    def sustain(dec, arg):
-        out = dec(arg)
-        ok = np.asarray(out[1])
-        t0 = time.perf_counter()
-        pend = []
-        for _ in range(a.reps):
-            pend.append(dec(arg)[1])
-            if len(pend) > a.depth:
-                np.asarray(pend.pop(0))
-        for p in pend:
-            np.asarray(p)
-        dt = (time.perf_counter() - t0) / a.reps
-        return dt, int(ok.sum())
-
-    print("compiling + warmup...", file=sys.stderr)
-    t_h, ok_h = sustain(dec_h, xd)
-    t_1, ok_1 = sustain(dec_1, xd[0])
+    hb = dl_batch(b, snr_db=a.snr_db, n_unique=32, sfs_rvs=((1, 0), (2, 2)))
+    xd = jax.device_put(jnp.asarray(hb.x_iq.astype(jnp.bfloat16)))
+    dec_h = make_batch_harq_decoder_pallas(*hb.decoder_args(), n_iter=6)
+    dec_1 = make_batch_decoder_pallas(hb.cfg, hb.cid, hb.cfi, hb.prbs,
+                                      hb.sf[0], hb.rnti, hb.geom[0],
+                                      hb.scheme, n_iter=6)
+    ok_h = int(np.sum(np.asarray(dec_h(xd)[1])))
+    ok_1 = int(np.sum(np.asarray(dec_1(xd[0])[1])))
+    t_h = min(time_batches(dec_h, xd, a.reps, a.depth))
+    t_1 = min(time_batches(dec_1, xd[0], a.reps, a.depth))
+    tbs = hb.geom[0].tbs
     mbps_h = tbs * b / t_h / 1e6
     mbps_1 = tbs * b / t_1 / 1e6
     print(f"single-rv: {t_1*1e3:.2f} ms/batch ({mbps_1:.1f} Mbit/s, "
@@ -132,7 +66,7 @@ def main():
         "value": round(mbps_h, 2), "unit": "Mbit/s/chip",
         "single_rv_mbps": round(mbps_1, 2),
         "overhead_ratio": round(t_h / t_1, 3),
-        "crc_ok": ok_h, "batch": b}))
+        "crc_ok": ok_h, "batch": b, "device": device}))
 
 
 if __name__ == "__main__":

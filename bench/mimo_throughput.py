@@ -3,12 +3,14 @@
 Full receive chain per subframe: OFDM demod on 2 RX antennas -> CRS
 channel estimation per (rx, port) -> TM3 effective channel -> per-RE 2x2
 MMSE demix -> per-layer 64QAM max-log demap -> per-codeword descramble /
-de-match -> one fused Pallas turbo batch over BOTH codewords -> CRC.
+de-match -> one turbo batch over BOTH codewords -> CRC.
 
 Two TBS-75376 codewords per subframe = 150.752 Mbit per TTI-second — a
 capability beyond the reference's single-codeword ceiling.
 
-    python bench/mimo_throughput.py [--batch 192] [--reps 6]
+    python bench/mimo_throughput.py [--batch 256] [--reps 6] [--tm 4]
+
+Prints one JSON line.  Fails without a GPU.
 """
 from __future__ import annotations
 
@@ -16,17 +18,22 @@ import argparse
 import json
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
+CMATS = {
+    # well-conditioned fixed 2x2 channel
+    "bench": [[1.0 + 0.1j, 0.3 - 0.25j], [0.2 + 0.3j, -0.95 + 0.1j]],
+    # correlated, asymmetric column powers (the SIC regime): linear MMSE
+    # pays the correlation penalty on both layers, SIC only on the first
+    "corr": [[1.0, 0.334], [0.6, 0.608]],
+}
+
 
 def main():
     ap = argparse.ArgumentParser()
-    # r5 close-out B re-sweep: 192 (1037) < 256 (1078-1080, peak) >
-    # 320 (910) > 384 (843)
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--reps", type=int, default=6)
     ap.add_argument("--iters", type=int, default=6)
@@ -35,125 +42,42 @@ def main():
     ap.add_argument("--cb-index", type=int, default=0)
     ap.add_argument("--snr-db", type=float, default=25.0)
     ap.add_argument("--cmat", default="bench",
-                    help="'bench' (near-orthogonal) or 'corr' (correlated "
-                         "asymmetric columns - the SIC regime) or 8 "
-                         "comma-separated re,im pairs row-major")
+                    help="'bench', 'corr', or 8 comma-separated re,im pairs "
+                         "row-major")
     a = ap.parse_args()
+    from lteax.utils.device import bench_device
+    device = bench_device()
     import jax
     import jax.numpy as jnp
-    from lteax.phy.config import PhyConfig
-    from lteax.phy import seq, mimo
-    from lteax.phy.grid import crs_flat_idx, crs_symbols, pdsch_flat_idx
-    from lteax.phy.ofdm import subframe_to_samples
-    from lteax.phy.channels import pdsch as pdsch_mod
-    from lteax.phy.tables.tbs import get_tbs_for_mcs
+    from bench.common import time_batches
+    from lteax.shard.pipeline import make_mimo_batch_decoder
+    from lteax.sim.batches import mimo_batch
 
-    cfg = PhyConfig(n_rb_dl=100, n_ant=2)
-    cid, sf, rnti, cfi = 214, 1, 0x1234, 1
-    prbs = tuple(range(100))
-    tbs, scheme = get_tbs_for_mcs(a.mcs, 100)
-    re_idx_np = pdsch_flat_idx(cfg, cid, cfi, prbs, sf)
-    m = len(re_idx_np)
-    geom = pdsch_mod.pdsch_geometry(tbs, m, 6, 0)
-    print(f"n_re {m}, TBS {tbs} x2, code rate "
-          f"{(tbs + 24) / (m * 6):.3f}/cw", file=sys.stderr)
-    b = a.batch
-    rng = np.random.default_rng(0)
-
-    # ---- build inputs on host CPU ----
-    cpu = jax.devices("cpu")[0]
-    b_uniq = min(b, 16)
-    tb_bits = rng.integers(0, 2, size=(2, b_uniq, tbs)).astype(np.int32)
-    with jax.default_device(cpu):
-        d = [jax.vmap(lambda cb, q=q: pdsch_mod.pdsch_encode_cbs(
-                cb, geom, rnti, sf, cid, scheme, codeword=q))(
-                jnp.asarray(np.stack([pdsch_mod.pdsch_prepare_cbs(
-                    tb_bits[q, i], geom) for i in range(b_uniq)])))
-             for q in range(2)]
-        lm = mimo.layer_map_2cw(d[0], d[1])
-        p0, p1 = (mimo.precode_tm3(lm) if a.tm == 3
-                  else mimo.precode_tm4(lm, a.cb_index))
-        # per-port grids with both ports' CRS
-        ports = np.zeros((2, b_uniq, cfg.n_sym_subframe * cfg.n_sc),
-                         np.complex64)
-        for p in range(2):
-            vals = []
-            for sym in crs_symbols(p, cfg):
-                slot = sym // cfg.n_sym_slot
-                vals.append(seq.crs_values(cid, 2 * sf + slot,
-                                           sym % cfg.n_sym_slot, cfg.n_rb_dl))
-            ports[p][:, crs_flat_idx(cfg, cid, p)] = np.concatenate(vals)
-        ports[0][:, re_idx_np] = np.asarray(p0)
-        ports[1][:, re_idx_np] = np.asarray(p1)
-        tx = np.stack([np.asarray(subframe_to_samples(jnp.asarray(
-            ports[p].reshape(b_uniq, cfg.n_sym_subframe, cfg.n_sc)), cfg))
-            for p in range(2)])                      # (2tx, b, n_samps)
-    if a.cmat == "bench":     # well-conditioned fixed 2x2 channel
-        cmat = np.array([[1.0 + 0.1j, 0.3 - 0.25j],
-                         [0.2 + 0.3j, -0.95 + 0.1j]], np.complex64)
-    elif a.cmat == "corr":    # correlated, asymmetric column powers:
-        # col0 strong, col1 = 0.74-correlated weak - linear MMSE pays the
-        # correlation penalty on BOTH layers, SIC only on the first
-        cmat = np.array([[1.0, 0.334],
-                         [0.6, 0.608]], np.complex64)
+    if a.cmat in CMATS:
+        cmat = np.array(CMATS[a.cmat], np.complex64)
     else:
         v = [float(t) for t in a.cmat.split(",")]
         cmat = (np.array(v[0::2]) + 1j * np.array(v[1::2])
                 ).reshape(2, 2).astype(np.complex64)
-    nv = 10 ** (-a.snr_db / 10.0)
-    rx = np.einsum("rt,tbn->rbn", cmat, tx)
-    rx = rx + (rng.standard_normal(rx.shape)
-               + 1j * rng.standard_normal(rx.shape)) * np.sqrt(nv / 2)
-    reps_t = b // b_uniq + (1 if b % b_uniq else 0)
-    rx = np.tile(rx, (1, reps_t, 1))[:, :b]
-    x_iq = np.stack([rx.real, rx.imag], -1).astype(np.float32)  # (2,b,n,2)
-
-    # production batched decoder (shard/pipeline.py): structured-slice RE
-    # extraction, one chest call per port (RX rows batched), hoisted
-    # scrambling, batch-level de-match, two-program split, fused Pallas
-    # turbo over both codewords with early stop + compacted retry
-    # (set LTEAX_PRINT_ITERS=1 for the iteration diagnostic — it measurably
-    # slows the pipeline, so it is not on by default)
-    from lteax.shard.pipeline import make_mimo_batch_decoder
-    f = make_mimo_batch_decoder(cfg, cid, cfi, prbs, sf, rnti, geom, scheme,
-                                n_iter=a.iters, tm=a.tm, cb_index=a.cb_index)
-    xd = jax.device_put(jnp.asarray(x_iq))
-    t0 = time.time()
-    out = f(xd)
-    jax.block_until_ready(out)
-    n_ok = int(np.sum(np.asarray(out[1])))
-    it_msg = (f"; turbo iterations: {int(np.asarray(out[2]))}/{a.iters}"
-              if len(out) == 3 else "")
-    print(f"compile+run {time.time()-t0:.1f}s; crc ok {n_ok}/{2*b}{it_msg}",
-          file=sys.stderr)
-    ts = []
-    for _ in range(a.reps):
-        t0 = time.perf_counter()
-        np.asarray(f(xd)[1])  # transfer = reliable completion barrier
-        ts.append(time.perf_counter() - t0)
-    t = float(np.median(ts))
-    print(f"per-batch median {t*1e3:.1f} ms / {b} subframes (2 codewords "
-          "each)", file=sys.stderr)
-    # sustained: 2 batches in flight (host dispatch overlaps device exec)
-    depth = int(os.environ.get("LTEAX_BENCH_DEPTH", "2"))
-    inflight = []
-    t0 = time.perf_counter()
-    for _ in range(a.reps):
-        inflight.append(f(xd))
-        if len(inflight) >= depth:
-            np.asarray(inflight.pop(0)[1])
-    for r in inflight:
-        np.asarray(r[1])
-    t_sus = (time.perf_counter() - t0) / a.reps
-    print(f"sustained ({depth} in flight): {t_sus*1e3:.1f} ms/batch",
-          file=sys.stderr)
-    t = min(t, t_sus)
-    mbps = 2 * b * tbs / t / 1e6
+    b = a.batch
+    mb = mimo_batch(b, mcs=a.mcs, snr_db=a.snr_db, tm=a.tm,
+                    cb_index=a.cb_index, cmat=cmat)
+    f = make_mimo_batch_decoder(*mb.decoder_args(), n_iter=a.iters, tm=a.tm,
+                                cb_index=a.cb_index)
+    xd = jax.device_put(jnp.asarray(mb.x_iq))
+    bits, ok = f(xd)[:2]
+    n_ok = int(np.sum(np.asarray(ok)))
+    want = mb.tb_bits.transpose(1, 0, 2).reshape(2 * b, -1)
+    exact = bool(np.array_equal(np.asarray(bits), want))
+    t, t_sus = time_batches(f, xd, a.reps)
+    print(f"crc ok {n_ok}/{2 * b}, exact {exact}; per-batch {t*1e3:.2f} ms, "
+          f"sustained {t_sus*1e3:.2f} ms", file=sys.stderr)
+    mbps = 2 * b * mb.geom.tbs / min(t, t_sus) / 1e6
     print(json.dumps({
         "metric": f"decoded 2x2 TM{a.tm} dual-codeword DL-SCH, 20 MHz MCS"
                   f"{a.mcs}",
         "value": round(mbps, 2), "unit": "Mbit/s/chip",
-        "crc_ok": n_ok, "batch": b}))
+        "crc_ok": n_ok, "batch": b, "device": device}))
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 processes, channel axis across processes (config #5 shape).
 
 (SURVEY.md §4: "jax.distributed multi-process tests spawned locally to
-exercise ICI/DCN code paths deterministically".)
+exercise the cross-device code paths deterministically".)
 
 Each process owns a set of scanner channels (channel axis across "hosts"),
 computes local PSS-detection scores on its own devices, and the cell-count

@@ -22,9 +22,10 @@ def sweep(n_rb: int = 25, mcs: int = 10, n_blocks: int = 20,
           esn0_points=None, n_iter: int = 6, seed: int = 0,
           decoder: str = "device"):
     """``decoder="device"`` uses the XLA-scan reference turbo;
-    ``decoder="pallas"`` uses the PRODUCTION turbo stage (Pallas kernel
-    with the shipped DecoderTuning: bf16 trellis, pinpad, early stop,
-    compacted retry) — the curve the BLER regression gate pins."""
+    ``decoder="pallas"`` uses the PRODUCTION turbo stage (the turbo
+    kernel on the GPU, its plain scan elsewhere, with the shipped
+    DecoderTuning: bf16 trellis, early stop, compacted retry) — the curve
+    the BLER regression gate pins."""
     from lteax.phy.tables.tbs import get_tbs_for_mcs
     from lteax.phy.channels import pdsch as pdsch_mod
     from lteax.phy.mod import modulate, demodulate_maxlog, BITS_PER_SYM
@@ -48,15 +49,14 @@ def sweep(n_rb: int = 25, mcs: int = 10, n_blocks: int = 20,
         from lteax.phy import seq
         from lteax.phy.tuning import DecoderTuning
         from lteax.shard.pipeline import _make_turbo_stage
-        t = DecoderTuning()               # shipped profile, NOT from_env:
-        interp = jax.default_backend() == "cpu"   # the gate pins defaults
+        t = DecoderTuning()    # shipped profile, NOT from_env: the gate
         sgn = jnp.asarray(seq.scrambling_symbols_np(
             rnti * 2 ** 14 + sf * 512 + cid, geom.g))
-        turbo = _make_turbo_stage(geom, n_iter, t, interp)[0]
+        turbo = _make_turbo_stage(geom, n_iter, t, False)[0]   # pins defaults
 
         def decode_batch(llr_b):          # (B, G) f32 channel LLRs
             llr = llr_b * sgn
-            if t.mdtype.startswith("bf16"):
+            if t.mdtype == "bf16":
                 llr = llr.astype(jnp.bfloat16)
             return turbo(pdsch_mod.soft_dematch(llr, geom))
         dec_pl = jax.jit(decode_batch)

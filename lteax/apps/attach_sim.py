@@ -4,7 +4,7 @@
 PRACH detect -> MAC RAR -> RRC setup -> NAS attach/AKA/security-mode ->
 default bearer — executed here as an in-process simulation over the real
 lteax PHY codecs: PRACH, PDCCH+DCI, PDSCH, PUSCH, MAC/RLC/PDCP PDUs, NAS,
-Milenage/EIA2/EEA2.  The reference runs this against real phones; the TPU
+Milenage/EIA2/EEA2.  The reference runs this against real phones; this
 framework's testable equivalent is this loopback.)
 
 Run:  python -m lteax.apps.attach_sim
@@ -204,8 +204,6 @@ def run(verbose: bool = True, pcap_path: str | None = None) -> dict:
 
 
 def main():
-    from lteax.utils.platform import apply_platform_env
-    apply_platform_env()
     res = run(verbose=True,
               pcap_path=os.environ.get("LTEAX_ATTACH_PCAP"))
     print({"attach_complete": all(res.values()), **res})

@@ -270,8 +270,6 @@ class EnbService:
 
 
 def main(argv=None):
-    from lteax.utils.platform import apply_platform_env
-    apply_platform_env()
     ap = argparse.ArgumentParser()
     ap.add_argument("--port", type=int, default=20000)
     ap.add_argument("--cnfg", default="/tmp/lteax_enb.cnfg")

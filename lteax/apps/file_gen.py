@@ -280,8 +280,6 @@ def generate(gc: GenConfig) -> np.ndarray:
 
 
 def main(argv=None):
-    from lteax.utils.platform import apply_platform_env
-    apply_platform_env(default="cpu")
     p = argparse.ArgumentParser(description="LTE DL IQ file generator")
     p.add_argument("--out", required=True)
     p.add_argument("--n-rb", type=int, default=6)
@@ -299,8 +297,7 @@ def main(argv=None):
     gc = GenConfig(n_rb_dl=a.n_rb, n_cell_id=a.cell_id, n_frames=a.frames,
                    tac=a.tac, n_ant=a.n_ant, extended_cp=a.extended_cp,
                    si_dci=a.si_dci, cfi=cfi)
-    from lteax.utils.platform import run_with_cpu_fallback
-    x = run_with_cpu_fallback(lambda: generate(gc), "frame generation")
+    x = generate(gc)
     write_iq(a.out, x, a.fmt)
     print(f"wrote {len(x)} samples ({a.frames} frames, {gc.phy.fs/1e6:.2f} Msps) to {a.out}")
 

@@ -5,7 +5,7 @@
 SSS_SEARCH → BCH_DECODE → PDSCH_DECODE_SIB1 → PDSCH_DECODE_SI_GENERIC —
 SURVEY.md §3.1, the first path the new framework replicates.)
 
-TPU-native design: instead of a sample-driven state machine, the capture is
+Design: instead of a sample-driven state machine, the capture is
 processed in whole-capture batched stages — one PSS correlation over the full
 buffer, then ALL subframes OFDM-demodulated/channel-estimated in one batched
 device call, then per-SI-subframe control+shared channel decoding.
@@ -336,8 +336,6 @@ def _try_paging(res, g, cfg, cfg_c, cid, sf, n_ant, ng):
 
 
 def main(argv=None):
-    from lteax.utils.platform import apply_platform_env
-    apply_platform_env(default="cpu")
     p = argparse.ArgumentParser(description="LTE DL IQ file scanner")
     p.add_argument("path")
     p.add_argument("--n-rb", type=int, default=6,
@@ -348,9 +346,7 @@ def main(argv=None):
     a = p.parse_args(argv)
     cfg = PhyConfig(n_rb_dl=a.n_rb, extended_cp=a.extended_cp)
     x = read_iq(a.path, a.fmt)
-    from lteax.utils.platform import run_with_cpu_fallback
-    res = run_with_cpu_fallback(lambda: scan(x, cfg, correct_cfo=not a.no_cfo),
-                                "capture scan")
+    res = scan(x, cfg, correct_cfo=not a.no_cfo)
     print(res.to_json())
 
 

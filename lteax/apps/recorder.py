@@ -79,8 +79,6 @@ def record_tcp(src, out_path: str, n_samples: int, out_fmt: str = "fc32",
 
 
 def main(argv=None):
-    from lteax.utils.platform import apply_platform_env
-    apply_platform_env()
     p = argparse.ArgumentParser(description="IQ stream recorder")
     p.add_argument("--in-path", required=True)
     p.add_argument("--out", required=True)

@@ -258,8 +258,6 @@ def run(verbose: bool = True, noise_db: float = 12.0,
 
 
 def main():
-    from lteax.utils.platform import apply_platform_env
-    apply_platform_env()
     res = run(verbose=True)
     print({"rrc_attach_complete": all(res.values()), **res})
 

@@ -262,8 +262,6 @@ def main(argv=None):
         cfg = PhyConfig(n_rb_dl=a.n_rb)
         chans = _parse_channels(a.captures)
         raise SystemExit(run_multihost_worker(a, chans, cfg))
-    from lteax.utils.platform import apply_platform_env
-    apply_platform_env()
     if a.eventlog:
         EVENTS.open(a.eventlog)
         EVENTS.set_level(a.debug_level)

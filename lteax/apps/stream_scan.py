@@ -136,8 +136,6 @@ class StreamScanService:
 
 
 def main(argv=None):
-    from lteax.utils.platform import apply_platform_env
-    apply_platform_env()
     ap = argparse.ArgumentParser(description="streaming LTE capture scanner")
     ap.add_argument("path", nargs="?", default=None)
     ap.add_argument("--tcp-port", type=int, default=None,

@@ -15,9 +15,9 @@ import numpy as np
 
 
 def to_iq_f32(x: np.ndarray) -> np.ndarray:
-    """complex (...,) -> float32 (..., 2).  Device-boundary layout: the TPU
-    backend does not support complex host<->device transfers, so all jitted
-    entry points take/return IQ float pairs and form complex inside jit."""
+    """complex (...,) -> float32 (..., 2).  Device-boundary layout: all
+    jitted entry points take/return IQ float pairs and form complex inside
+    jit (float pairs also stage as bf16 or int8)."""
     x = np.asarray(x)
     return np.stack([x.real, x.imag], axis=-1).astype(np.float32)
 

@@ -6,9 +6,9 @@ native LTE rates and lets gr-osmosdr resample; BASELINE.json explicitly
 requires a polyphase resampler for hackrf-style fractional rates on the
 scanner path.)
 
-TPU-native design: the P subfilters run as ONE strided ``lax.conv`` with P
-output channels (stride Q), then the phases interleave — XLA maps the conv
-onto the MXU.  For sharded streams, halo-exchange ``taps-1`` samples first
+Design: the P subfilters run as P strided ``lax.conv`` calls (stride Q),
+then the phases interleave; XLA hands the convolutions to its convolution
+library.  For sharded streams, halo-exchange ``taps-1`` samples first
 (shard/halo.py) and the output is shard-invariant.
 """
 
@@ -37,130 +37,13 @@ def design_polyphase(p: int, q: int, taps_per_phase: int = 12,
     return h.reshape(taps_per_phase, p).T.astype(np.float32).copy()
 
 
-@lru_cache(maxsize=None)
-def _frame_weight(p: int, q: int, taps_per_phase: int) -> np.ndarray:
-    """(K_in, P) f32 weight: output frame j (P consecutive output samples)
-    = window x[jQ : jQ+K_in] @ W — the polyphase bank as ONE matmul.
-
-    W[i, r] = sub_{(rQ) mod P}[T-1-(i-off_r)] for i in [off_r, off_r+T)
-    with off_r = floor(rQ/P) — derived from the upfirdn identity used by
-    ``resample_poly`` (outputs are element-identical)."""
-    bank = design_polyphase(p, q, taps_per_phase)
-    t = bank.shape[1]
-    off = [(r * q) // p for r in range(p)]
-    k_in = max(off) + t
-    w = np.zeros((k_in, p), dtype=np.float32)
-    for r in range(p):
-        sub = bank[(r * q) % p]
-        for tt in range(t):
-            w[off[r] + tt, r] = sub[t - 1 - tt]
-    return w
-
-
-def resample_poly_pallas(x: jnp.ndarray, p: int, q: int,
-                         taps_per_phase: int = 12,
-                         frames_per_tile: int = 512,
-                         interpret: bool = False) -> jnp.ndarray:
-    """Pallas TPU polyphase resampler (SURVEY §7 step 6d).
-
-    The stream is framed into Q-sample rows; each kernel instance loads a
-    (F + R, Q) row tile into VMEM, forms the (F, K_in) overlapping windows
-    with STATIC shifted row-slices (no gather, no im2col blowup in HBM),
-    and runs the (F, K_in) @ (K_in, P) subfilter matmul on the MXU.
-    Element-identical (f32) to :func:`resample_poly` up to matmul rounding;
-    1D input only (the scanner's per-channel stream shape)."""
-    import jax
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    assert x.ndim == 1, "pallas resampler: 1D streams"
-    bank = design_polyphase(p, q, taps_per_phase)
-    t = bank.shape[1]
-    off = [(r * q) // p for r in range(p)]
-    n_frames = (x.shape[-1] - t - max(off)) // q
-    w = jnp.asarray(_frame_weight(p, q, taps_per_phase))   # (K_in, P)
-    k_in = w.shape[0]
-    r_rows = -(-(k_in + q - 1) // q) + 1     # row span of one window
-    f = frames_per_tile
-    assert r_rows <= f, (r_rows, f)
-    n_tiles = -(-n_frames // f)
-    rows_total = (n_tiles + 1) * f           # +1 tile: halo source
-    xp = jnp.pad(x, (0, max(0, rows_total * q - x.shape[-1])))
-    # blocks can't overlap in a BlockSpec: tile i's window tail rows come
-    # from the HEAD of tile i+1, passed as a separate (pure-slice) input
-    xr = jnp.real(xp[: rows_total * q]).reshape(n_tiles + 1, f, q)
-    xi = jnp.imag(xp[: rows_total * q]).reshape(n_tiles + 1, f, q)
-    hr = xr[1:, :r_rows, :]                  # (n_tiles, r_rows, q)
-    hi = xi[1:, :r_rows, :]
-    xr, xi = xr[:-1], xi[:-1]
-
-    # Mosaic can't concat shifted sublane slices along lanes ("offset
-    # mismatch on non-concat dimension"), so instead of materializing the
-    # (F, K_in) window matrix the kernel accumulates r_rows shifted
-    # (F, Q) @ (Q, P) matmuls: frames[:, sQ:(s+1)Q] == blk[s:s+F, :],
-    # so  y = sum_s blk[s:s+F, :] @ W[sQ:(s+1)Q, :]  (W zero-padded).
-    wpad = jnp.zeros((r_rows * q, p), jnp.float32).at[:k_in].set(w)
-
-    def kernel(xr_ref, hr_ref, xi_ref, hi_ref, w_ref, yr_ref, yi_ref):
-        def apply(m_ref, h_ref):
-            blk = jnp.concatenate([m_ref[0], h_ref[0]], axis=0)
-            acc = None
-            for s in range(r_rows):
-                t_ = jnp.dot(blk[s:s + f, :], w_ref[s * q:(s + 1) * q, :],
-                             preferred_element_type=jnp.float32)
-                acc = t_ if acc is None else acc + t_
-            return acc
-        yr_ref[:, :] = apply(xr_ref, hr_ref)
-        yi_ref[:, :] = apply(xi_ref, hi_ref)
-
-    bs_main = pl.BlockSpec((1, f, q), lambda i: (i, 0, 0),
-                           memory_space=pltpu.VMEM)
-    bs_halo = pl.BlockSpec((1, r_rows, q), lambda i: (i, 0, 0),
-                           memory_space=pltpu.VMEM)
-    bs_w = pl.BlockSpec((r_rows * q, p), lambda i: (0, 0),
-                        memory_space=pltpu.VMEM)
-    bs_out = pl.BlockSpec((f, p), lambda i: (i, 0),
-                          memory_space=pltpu.VMEM)
-    yr, yi = pl.pallas_call(
-        kernel, grid=(n_tiles,),
-        in_specs=[bs_main, bs_halo, bs_main, bs_halo, bs_w],
-        out_specs=[bs_out, bs_out],
-        out_shape=[jax.ShapeDtypeStruct((n_tiles * f, p), jnp.float32)] * 2,
-        interpret=interpret,
-    )(xr, hr, xi, hi, wpad)
-    y = (yr + 1j * yi)[:n_frames].reshape(-1)
-    return y.astype(jnp.complex64)
-
-
 def resample_poly(x: jnp.ndarray, p: int, q: int,
-                  taps_per_phase: int = 12,
-                  use_pallas: bool | None = None) -> jnp.ndarray:
+                  taps_per_phase: int = 12) -> jnp.ndarray:
     """Resample (..., L) complex by rational P/Q -> (..., ~L*P/Q).
 
     y[m] = sum_l h_sub[m mod P, l] * x[floor(m*Q/P) - l + D]  (group-delay
     compensated).  Output length floor(L * P / Q) (edge-trimmed).
-
-    1D streams on TPU dispatch to the Pallas kernel
-    (:func:`resample_poly_pallas`, one MXU matmul chain instead of P
-    strided convs — 320 -> 23 ms for the 192/125 hackrf case at 4 Msamp);
-    batched inputs and CPU keep the XLA conv formulation.
-
-    ``use_pallas`` pins the path explicitly.  When None, concrete inputs
-    dispatch on the array's ACTUAL device; only traced 1D inputs fall back
-    to ``jax.default_backend()`` — so an explicit-CPU jit of a 1D resample
-    while TPU is the default backend no longer takes the Pallas path on the
-    wrong platform (pass use_pallas for traced non-default-device jits).
     """
-    import jax
-    if use_pallas is None and x.ndim == 1:
-        devs = getattr(x, "devices", None)
-        if isinstance(x, jax.Array) and devs is not None and \
-                not isinstance(x, jax.core.Tracer):
-            use_pallas = all(d.platform == "tpu" for d in x.devices())
-        else:
-            use_pallas = jax.default_backend() == "tpu"
-    if x.ndim == 1 and use_pallas:
-        return resample_poly_pallas(x, p, q, taps_per_phase)
     bank = design_polyphase(p, q, taps_per_phase)       # (P, T)
     t = bank.shape[1]
     # output m = j*P + r uses subfilter (m*Q mod P) = (r*Q mod P) and input

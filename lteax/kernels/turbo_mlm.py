@@ -1,28 +1,33 @@
-"""Pallas TPU kernel: fused max-log-MAP half-iteration.
+"""Windowed max-log-MAP half-iteration: a Pallas kernel for the GPU (Triton
+route) and a plain ``lax.scan`` version of the same contract, plus the
+batched turbo decode driver built on them.
 
-(SURVEY.md §6 flagship kernel.  The XLA scan version streams per-step
-alpha/beta ys arrays through HBM (~100 MB+ per half-iteration for a 20 MHz
-batch); this kernel keeps the entire trellis state and the beta store in
-VMEM, so HBM traffic collapses to the u/v inputs and the L output.)
+Contract (``half_iteration``): step-major operands ``um``/``vm``
+``(win, n_w, cpad)`` — value at trellis position ``p = w*win + j`` of
+codeblock ``c`` lives at ``[j, w, c]``, codeblocks on the minor axis — and
+window-boundary inits ``a_l``/``b_l`` ``(n_w, 8, cpad)``.  Returns the APP
+LLRs in the same layout and the next-iteration window inits (NII), already
+shifted into init position and normalised.
 
-Layout: batch codeblocks on sublanes, windows on lanes — (TB, n_w) tiles,
-and ALL time-indexed buffers are STEP-MAJOR so each loop step reads/writes
-one contiguous (TB, n_w) tile.  The 8 trellis states are unrolled into
-separate arrays (radix-2 butterfly wiring as straight-line code; branch
-metrics reduce to +/-(u+v)/2, +/-(u-v)/2).  The alpha and beta sweeps are
-fused into one loop; the output combine is one whole-block vector expression.
+Every (window, codeblock) pair is an independent trellis chain: an
+``acq``-step acquisition warms the alpha/beta metrics up from the
+neighbouring windows, then the alpha and beta sweeps run in one loop and
+meet in the middle of the window.  The first half stores each chain's
+pre-step metrics (half a window of alphas and betas); the second half
+combines every live metric at once with the opposing stored one, so the
+APP LLRs come out without a separate combine pass.
 
-Inputs are pre-reshaped by the host wrapper:
-  u_main/v_main (win, B, n_w): u[b, w*win + j] at [j, b, w]
-  u_aacq/v_aacq (acq, B, n_w): alpha acquisition u[b, w*win - acq + j]
-  u_bacq/v_bacq (acq, B, n_w): beta acquisition  u[b, (w+1)*win + j]
-  live masks (win|acq, n_w) f32 handle the padded tail.
-Outputs:
-  l_out (win, B, n_w): APP LLR at position w*win + j
-  a_nii, b_nii (B, n_w, 8): next-iteration window-boundary metrics
-  (a_nii[w] = alpha at (w+1)*win - acq from window w's chain;
-   b_nii[w] = beta at w*win + acq from window w's chain — the host shifts
-   them into init position.)
+The GPU kernel runs each chain in one thread: the 8 alpha and 8 beta
+metrics stay in registers, and the half-window stores go to a global
+scratch, one slot per program.  The plain version writes
+every step's metrics as ``ys`` and combines afterwards; it is the reference
+on the GPU and the implementation everywhere else.
+
+Arithmetic shared by both:
+  * dead positions (past the trellis end) of the beta sweep are pinned by
+    data — u += PIN — instead of per-step freeze blends (see ``PIN``);
+  * bf16 metrics are renormalised (state 0 subtracted) every 4 steps;
+  * the output combine runs in f32 whatever the metric dtype.
 """
 
 from __future__ import annotations
@@ -33,9 +38,29 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 NEG = -1e9
+
+PIN = 512.0
+"""Pinned-padding magnitude: dead positions get u=+PIN, making the state-0
+self-loop branch (sys=0, par=0, gamma=+(u+v)/2) dominate every dead trellis
+step.  The backward metrics then converge to the constant profile
+[0, -PIN, ..., -PIN] — an effective termination pin with margin PIN, with
+no per-step freeze blend.  PIN=512 clears threshold-regime LLR
+accumulations while keeping bf16 rounding at the dead/live boundary
+negligible (offset <= 3*PIN/2 between renorms, ULP(768)=4)."""
+
+RENORM = 4
+"""bf16 renormalisation cadence in trellis steps: path metrics must stay
+O(branch metric) or the 8-bit mantissa rounds away the ACS margins."""
+
+BLOCK = 256
+"""Chains (window x codeblock pairs) per kernel program."""
+
+NUM_WARPS = 4
+"""Warps per kernel program (BLOCK / (32 * NUM_WARPS) chains per thread).
+BLOCK and NUM_WARPS were chosen on an H100 (PERF.md)."""
 
 
 @lru_cache(maxsize=None)
@@ -44,803 +69,350 @@ def _wiring():
     return _unrolled_wiring()
 
 
-def _gammas(uu, vv):
-    gpp = 0.5 * (uu + vv)
-    gpm = 0.5 * (uu - vv)
+def _exact(x):
+    return x
+
+
+def _rounding(dt):
+    """Per-operation rounding for the trellis arithmetic.  The kernel's
+    bf16 operations round after every step by construction; XLA may keep
+    fused bf16 chains in f32 (excess precision), so the XLA-lowered
+    versions round explicitly to do the same arithmetic."""
+    if dt != jnp.bfloat16:
+        return _exact
+    return lambda x: jax.lax.reduce_precision(x, exponent_bits=8,
+                                              mantissa_bits=7)
+
+
+def _gammas(uu, vv, rnd=_exact):
+    gpp = rnd(0.5 * (uu + vv))
+    gpm = rnd(0.5 * (uu - vv))
     return (gpp, gpm, -gpm, -gpp)
 
 
+def _acs(m, g, wiring, rnd=_exact):
+    """One radix-2 add-compare-select step over the 8 state metrics."""
+    return tuple(rnd(jnp.maximum(m[p0] + g[g0], m[p1] + g[g1]))
+                 for (p0, p1, g0, g1) in wiring)
+
+
+def _renorm(a, b, rnd=_exact):
+    return (tuple(rnd(x - a[0]) for x in a),
+            tuple(rnd(x - b[0]) for x in b))
+
+
+def _combine(a_s, b_s, uu, vv):
+    """APP LLR at the position of ``a_s`` (``b_s`` = beta one step later).
+
+    Branches are grouped by gamma code (bit-0 branches use codes {0,1},
+    bit-1 codes {2,3}), hoisting the gamma add out of the per-branch sums.
+    Arithmetic in f32: bf16 rounding in the combine costs whole turbo
+    iterations near the decoding threshold."""
+    _, _, out0, out1 = _wiring()
+    f32 = jnp.float32
+    g = _gammas(uu.astype(f32), vv.astype(f32))
+    af = [x.astype(f32) for x in a_s]
+    bf = [x.astype(f32) for x in b_s]
+    m = [None] * 4
+    for s in range(8):
+        for ns, gc in (out0[s], out1[s]):
+            t = af[s] + bf[ns]
+            m[gc] = t if m[gc] is None else jnp.maximum(m[gc], t)
+    l0 = jnp.maximum(m[0] + g[0], m[1] + g[1])
+    l1 = jnp.maximum(m[2] + g[2], m[3] + g[3])
+    return l0 - l1
+
+
 def _live_masks(win: int, acq: int, n_w: int, n: int):
-    """(win, n_w) / (acq, n_w) f32: 1.0 where the trellis position is < n."""
-    pos_main = (np.arange(win)[:, None] + win * np.arange(n_w)[None, :])
-    lv_main = (pos_main < n).astype(np.float32)
+    """(win, n_w) / (acq, n_w) bool: trellis position is live (< n)."""
+    pos_main = np.arange(win)[:, None] + win * np.arange(n_w)[None, :]
     pos_aacq = (np.arange(acq)[:, None] - acq
                 + win * np.arange(n_w)[None, :])
-    lv_aacq = ((pos_aacq >= 0) & (pos_aacq < n)).astype(np.float32)
     pos_bacq = (np.arange(acq)[:, None]
                 + win * (np.arange(n_w)[None, :] + 1))
-    lv_bacq = (pos_bacq < n).astype(np.float32)
-    return lv_main, lv_aacq, lv_bacq
+    return (pos_main < n, (pos_aacq >= 0) & (pos_aacq < n), pos_bacq < n)
 
 
-PIN = 512.0
-"""Pinned-padding magnitude (see ``pinpad`` in half_iteration_pallas): dead
-positions get u=+PIN, v=0, making the state-0 self-loop branch (sys=0,par=0,
-gamma=+(u+v)/2) dominate every dead trellis step.  The backward/forward
-metrics then converge to the constant profile [0, -PIN, ..., -PIN] (verified
-against the RSC wiring) — an effective termination/start pin with margin PIN,
-with NO per-step freeze blend in the kernel.  PIN=512 clears threshold-regime
-LLR accumulations while keeping bf16 rounding at the dead/live boundary
-negligible (offset <= 3*PIN/2 between renorms, ULP(768)=4)."""
+def _check_geometry(win: int, acq: int, n: int, n_w: int):
+    assert win % (2 * RENORM) == 0 and acq % RENORM == 0, (win, acq)
+    assert 0 < acq <= win // 2 and n_w >= -(-n // win), (win, acq, n, n_w)
 
 
-def _make_kernel(win: int, acq: int, n_w: int, n: int, tb: int,
-                 mdtype=jnp.float32, sdtype=None, fused: bool = False,
-                 nofreeze: bool = False, pinpad: bool = False,
-                 pinpad_acq: bool = False):
-    fwd, bwd, out0, out1 = _wiring()
-    assert win % 2 == 0
-    if fused:
-        return _make_kernel_fused(win, acq, n_w, n, tb, mdtype=mdtype,
-                                  sdtype=sdtype, nofreeze=nofreeze,
-                                  pinpad=pinpad, pinpad_acq=pinpad_acq)
-    assert not pinpad_acq, "pinpad_acq is a fused-kernel canary variant"
-
-    def kernel(lm_ref, la_ref, lb_ref, um, vm, ua, va, ub, vb, ainit, binit,
-               l_ref, a_nii_ref, b_nii_ref, astore, bstore):
-
-        is_bf16 = mdtype == jnp.bfloat16
-        sdt = sdtype or mdtype
-
-        def _freeze(new, old, lv):
-            """Keep ``old`` where the position is dead (lv row is 0/1 f32).
-            Boolean select for f32; arithmetic blend for bf16 (Mosaic can't
-            relayout an i1 mask against 16-bit operands)."""
-            if is_bf16:
-                m = lv.astype(jnp.bfloat16)
-                return tuple(m * nw + (1.0 - m) * od
-                             for nw, od in zip(new, old))
-            keep = lv > 0.5
-            return tuple(jnp.where(keep, nw, od)
-                         for nw, od in zip(new, old))
-
-        def acs_fwd(a, uu, vv, lv=None):
-            g = _gammas(uu, vv)
-            new = [jnp.maximum(a[p0] + g[g0], a[p1] + g[g1])
-                   for (p0, p1, g0, g1) in fwd]
-            if lv is None:
-                return tuple(new)
-            return _freeze(new, a, lv)
-
-        def acs_bwd(b, uu, vv, lv=None):
-            g = _gammas(uu, vv)
-            new = [jnp.maximum(b[n0] + g[g0], b[n1] + g[g1])
-                   for (n0, n1, g0, g1) in bwd]
-            if lv is None:
-                return tuple(new)
-            return _freeze(new, b, lv)
-
-        # ---- fused acquisition: alpha and beta warm-ups in one loop ----
-        # (masked: the freeze carries window 0's exact start pin across the
-        # dead pre-window positions, and the last window's termination pin
-        # across the dead tail)
-        a = tuple(ainit[:, :, s] for s in range(8))
-        b = tuple(binit[:, :, s] for s in range(8))
-
-        def acq_body(t, ab):
-            a, b = ab
-            a = acs_fwd(a, ua[t], va[t], la_ref[t, :][None, :])
-            j = acq - 1 - t
-            b = acs_bwd(b, ub[j], vb[j], lb_ref[j, :][None, :])
-            return (a, b)
-
-        a, b = jax.lax.fori_loop(0, acq, acq_body, (a, b))
-
-        # ---- fused window sweeps: store pre-step alpha/beta ----
-        # The forward sweep runs UNMASKED: dead positions exist only in the
-        # last window's tail, and the alphas they corrupt feed only combine
-        # outputs that the host slices off and the last window's a_nii
-        # export, which rolls into window 0 and is overwritten by the exact
-        # start pin (_pin_boundaries).  The backward sweep keeps its freeze:
-        # it must carry the termination pin across the dead tail.  Unrolled
-        # (4x when win allows) to cut sequential loop overhead.
-        unroll = 4 if win % 4 == 0 else 2
-
-        def win_body(tu, ab):
-            a, b = ab
-            for half in range(unroll):
-                t = unroll * tu + half
-                for s in range(8):
-                    astore[t, s, :, :] = a[s].astype(sdt)
-                a = acs_fwd(a, um[t], vm[t])
-                j = win - 1 - t
-                for s in range(8):
-                    bstore[j, s, :, :] = b[s].astype(sdt)
-                b = acs_bwd(b, um[j], vm[j], lm_ref[j, :][None, :])
-            if is_bf16:
-                # renormalise once per unroll block: bf16 path metrics must
-                # stay O(branch metric) or the 8-bit mantissa rounds away
-                # the ACS decision margins.  Subtracting state 0 is exact
-                # for the combine (any per-step constant cancels in l0-l1)
-                # and for the NII exports (normalised downstream anyway).
-                a = tuple(x - a[0] for x in a)
-                b = tuple(x - b[0] for x in b)
-            return (a, b)
-
-        jax.lax.fori_loop(0, win // unroll, win_body, (a, b))
-
-        # NII boundary exports:
-        #   a_nii[w] = alpha at (w+1)*win - acq  == astore[j = win-acq]
-        #   b_nii[w] = beta  at w*win + acq      == bstore[j = acq-1]
-        for s in range(8):
-            a_nii_ref[:, :, s] = astore[win - acq, s, :, :].astype(jnp.float32)
-            b_nii_ref[:, :, s] = bstore[acq - 1, s, :, :].astype(jnp.float32)
-
-        # ---- combine, vectorized over the whole (TB, win, n_w) block ----
-        uu = um[:]
-        vv = vm[:]
-        g = _gammas(uu, vv)
-        l0 = None
-        l1 = None
-        for s in range(8):
-            ns0, g0 = out0[s]
-            ns1, g1 = out1[s]
-            t0 = astore[:, s, :, :] + g[g0] + bstore[:, ns0, :, :]
-            t1 = astore[:, s, :, :] + g[g1] + bstore[:, ns1, :, :]
-            l0 = t0 if l0 is None else jnp.maximum(l0, t0)
-            l1 = t1 if l1 is None else jnp.maximum(l1, t1)
-        # L output in the metric dtype (the f32 subtraction guarded the
-        # bf16 cancellation; with per-block renorm the magnitudes stay
-        # O(branch metric) so bf16 is safe and halves the L traffic)
-        l_ref[:, :, :] = (l0 - l1).astype(l_ref.dtype)
-
-    return kernel
-
-
-def _make_kernel_fused(win: int, acq: int, n_w: int, n: int, tb: int,
-                       mdtype=jnp.float32, sdtype=None,
-                       nofreeze: bool = False, pinpad: bool = False,
-                       pinpad_acq: bool = False):
-    """Fused second-half combine: only win/2 alpha/beta columns are stored.
-
-    The alpha and beta chains meet in the middle of the window; once they
-    cross, each live pre-step metric can be combined IMMEDIATELY with the
-    opposing half-window store written during the first half — so the stores
-    halve and the separate whole-block combine pass (which re-reads both full
-    stores) disappears.  Numerically identical to the unfused kernel: the
-    combine consumes exactly the same (alpha, gamma, beta) triples, and
-    per-tuple renorm constants cancel in l0 - l1.
-
-    ``pinpad``: the host pads dead positions with u=+PIN (see PIN above), so
-    NO freeze blends are needed anywhere — the kernel has no mask inputs and
-    every ACS step is the bare radix-2 butterfly.
-    """
-    fwd, bwd, out0, out1 = _wiring()
-    half_w = win // 2
-    assert win % 2 == 0 and acq <= half_w
-
-    def kernel(lm_ref, la_ref, lb_ref, um, vm, ua, va, ub, vb, ainit, binit,
-               l_ref, a_nii_ref, b_nii_ref, astore, bstore):
-
-        is_bf16 = mdtype == jnp.bfloat16
-        sdt = sdtype or mdtype
-
-        def _freeze(new, old, lv):
-            if is_bf16:
-                m = lv.astype(jnp.bfloat16)
-                return tuple(m * nw + (1.0 - m) * od
-                             for nw, od in zip(new, old))
-            keep = lv > 0.5
-            return tuple(jnp.where(keep, nw, od)
-                         for nw, od in zip(new, old))
-
-        def acs_fwd(a, uu, vv, lv=None):
-            g = _gammas(uu, vv)
-            new = [jnp.maximum(a[p0] + g[g0], a[p1] + g[g1])
-                   for (p0, p1, g0, g1) in fwd]
-            if lv is None:
-                return tuple(new)
-            return _freeze(new, a, lv)
-
-        def acs_bwd(b, uu, vv, lv=None):
-            g = _gammas(uu, vv)
-            new = [jnp.maximum(b[n0] + g[g0], b[n1] + g[g1])
-                   for (n0, n1, g0, g1) in bwd]
-            if lv is None:
-                return tuple(new)
-            return _freeze(new, b, lv)
-
-        def combine(a_s, b_s, uu, vv):
-            """L at the position of a_s (b_s = beta one step later).
-
-            Branches grouped by gamma code (bit-0 branches use codes {0,1},
-            bit-1 codes {2,3}), hoisting the gamma add out of the per-branch
-            sums: 16 adds + 14 max vs 32 adds + 14 max.  Arithmetic in f32:
-            VPU compute throughput is f32-native (bf16 only buys VMEM
-            bandwidth, which the stores already have), and bf16 rounding in
-            the combine measurably costs whole turbo iterations near the
-            decoding threshold — the batch-wide early stop pays for the
-            weakest codeblock."""
-            f32 = jnp.float32
-            g = _gammas(uu.astype(f32), vv.astype(f32))
-            af = tuple(x.astype(f32) for x in a_s)
-            bf = tuple(x.astype(f32) for x in b_s)
-            m = [None] * 4
-            for s in range(8):
-                ns0, g0 = out0[s]
-                ns1, g1 = out1[s]
-                t0 = af[s] + bf[ns0]
-                m[g0] = t0 if m[g0] is None else jnp.maximum(m[g0], t0)
-                t1 = af[s] + bf[ns1]
-                m[g1] = t1 if m[g1] is None else jnp.maximum(m[g1], t1)
-            l0 = jnp.maximum(m[0] + g[0], m[1] + g[1])
-            l1 = jnp.maximum(m[2] + g[2], m[3] + g[3])
-            return l0 - l1
-
-        # ---- fused acquisition (identical to the unfused kernel) ----
-        a = tuple(ainit[:, :, s] for s in range(8))
-        b = tuple(binit[:, :, s] for s in range(8))
-
-        if pinpad_acq:
-            # Mosaic acq-cliff CANARY VARIANT (KNOWN_ISSUES.md): the exact
-            # "add a pad term to the acquisition input read" edit that
-            # de-optimizes the kernel ~90x.  la/lb hold PIN*(1-live) here.
-            def acq_body(t, ab):
-                a, b = ab
-                a = acs_fwd(a, ua[t] + la_ref[t, :][None, :], va[t])
-                j = acq - 1 - t
-                b = acs_bwd(b, ub[j] + lb_ref[j, :][None, :], vb[j])
-                return (a, b)
-        else:
-            def acq_body(t, ab):
-                a, b = ab
-                a = acs_fwd(a, ua[t], va[t], la_ref[t, :][None, :])
-                j = acq - 1 - t
-                b = acs_bwd(b, ub[j], vb[j], lb_ref[j, :][None, :])
-                return (a, b)
-
-        a, b = jax.lax.fori_loop(0, acq, acq_body, (a, b))
-
-        unroll = 4 if half_w % 4 == 0 else 2
-
-        # ---- phase 1: store-and-advance until the chains meet ----
-        # astore[t]          = alpha at position t          (t in [0, win/2))
-        # bstore[j - win/2]  = beta  at position j+1        (j in [win/2, win))
-        def store_body(tu, ab):
-            a, b = ab
-            for half in range(unroll):
-                t = unroll * tu + half
-                for s in range(8):
-                    astore[t, s, :, :] = a[s].astype(sdt)
-                a = acs_fwd(a, um[t], vm[t])
-                j = win - 1 - t
-                for s in range(8):
-                    bstore[j - half_w, s, :, :] = b[s].astype(sdt)
-                if pinpad:
-                    b = acs_bwd(b, um[j] + lm_ref[j], vm[j])
-                else:
-                    b = acs_bwd(b, um[j], vm[j],
-                                None if nofreeze else lm_ref[j, :][None, :])
-            if is_bf16:
-                a = tuple(x - a[0] for x in a)
-                b = tuple(x - b[0] for x in b)
-            return (a, b)
-
-        a, b = jax.lax.fori_loop(0, half_w // unroll, store_body, (a, b))
-
-        # ---- phase 2: combine-and-advance (no stores) ----
-        # At step t >= win/2 the live alpha sits at position t and the live
-        # beta at position j+1 (j = win-1-t < win/2):
-        #   L[t] = combine(a_live, bstore[t - win/2], gamma[t])
-        #   L[j] = combine(astore[j], b_live, gamma[j])
-        # NII exports happen inline at t == win - acq (alpha at win-acq is
-        # the pre-step live a; beta at position acq is the pre-step live b,
-        # since j + 1 = win - t = acq there).
-        nii_tu = (win - acq - half_w) // unroll
-        nii_half = (win - acq - half_w) % unroll
-
-        def comb_body(tu, ab):
-            a, b = ab
-            for half in range(unroll):
-                t = half_w + unroll * tu + half
-                j = win - 1 - t
-                if half == nii_half:
-                    @pl.when(tu == nii_tu)
-                    def _():
-                        for s in range(8):
-                            a_nii_ref[:, :, s] = a[s].astype(jnp.float32)
-                            b_nii_ref[:, :, s] = b[s].astype(jnp.float32)
-                bs_t = tuple(bstore[t - half_w, s, :, :] for s in range(8))
-                l_ref[t, :, :] = combine(a, bs_t, um[t], vm[t]
-                                         ).astype(l_ref.dtype)
-                as_j = tuple(astore[j, s, :, :] for s in range(8))
-                l_ref[j, :, :] = combine(as_j, b, um[j], vm[j]
-                                         ).astype(l_ref.dtype)
-                a = acs_fwd(a, um[t], vm[t])
-                if pinpad:
-                    b = acs_bwd(b, um[j] + lm_ref[j], vm[j])
-                else:
-                    b = acs_bwd(b, um[j], vm[j],
-                                None if nofreeze else lm_ref[j, :][None, :])
-            if is_bf16:
-                a = tuple(x - a[0] for x in a)
-                b = tuple(x - b[0] for x in b)
-            return (a, b)
-
-        jax.lax.fori_loop(0, half_w // unroll, comb_body, (a, b))
-
-    return kernel
-
-
-
-def _make_kernel_blane(win: int, acq: int, n_w: int, n: int, tl: int,
-                       mdtype=jnp.float32, sdtype=None,
-                       nofreeze: bool = False, pinpad: bool = False,
-                       unroll: int = 4, combine_bf16: bool = False):
-    """Fused-combine kernel with the FLIPPED tile: windows on SUBLANES,
-    codeblocks on LANES — (n_w, tl) ops instead of (tb, n_w*gb).
-
-    Motivation (r4 XProf): every XLA gather around the kernel produces a
-    (points, batch)-minor array, so the batch-on-sublanes tile forced a
-    relayout copy per gather; and at 20 MHz geometry (n_w=46, C=4992) the
-    old tile needed 156 grid cells at 77% lane fill vs 39 cells at ~96%
-    fill here — 4x fewer sequential step-cells.  Trellis logic is identical
-    to _make_kernel_fused (same wiring, same fused second-half combine,
-    same NII exports); only the axis order changed.  All masks arrive
-    pre-broadcast to (., n_w, tl) — no in-kernel relayouts.
-    """
-    fwd, bwd, out0, out1 = _wiring()
-    half_w = win // 2
-    assert win % 2 == 0 and acq <= half_w
-    if half_w % unroll != 0:
-        unroll = 4 if half_w % 4 == 0 else 2
-
-    def kernel(lm_ref, la_ref, lb_ref, um, vm, ua, va, ub, vb, ainit, binit,
-               l_ref, a_nii_ref, b_nii_ref, astore, bstore):
-
-        is_bf16 = mdtype == jnp.bfloat16
-        sdt = sdtype or mdtype
-
-        def _freeze(new, old, lv):
-            if is_bf16:
-                m = lv.astype(jnp.bfloat16)
-                return tuple(m * nw + (1.0 - m) * od
-                             for nw, od in zip(new, old))
-            keep = lv > 0.5
-            return tuple(jnp.where(keep, nw, od)
-                         for nw, od in zip(new, old))
-
-        def acs_fwd(a, uu, vv, lv=None):
-            g = _gammas(uu, vv)
-            new = [jnp.maximum(a[p0] + g[g0], a[p1] + g[g1])
-                   for (p0, p1, g0, g1) in fwd]
-            if lv is None:
-                return tuple(new)
-            return _freeze(new, a, lv)
-
-        def acs_bwd(b, uu, vv, lv=None):
-            g = _gammas(uu, vv)
-            new = [jnp.maximum(b[n0] + g[g0], b[n1] + g[g1])
-                   for (n0, n1, g0, g1) in bwd]
-            if lv is None:
-                return tuple(new)
-            return _freeze(new, b, lv)
-
-        def combine(a_s, b_s, uu, vv):
-            f32 = jnp.float32
-            g = _gammas(uu.astype(f32), vv.astype(f32))
-            if combine_bf16 and is_bf16:
-                # bf16 grouped sums/maxes, f32 only for the final gamma
-                # merge: 4 casts instead of 16.  The dangerous l0-l1
-                # cancellation stays f32; the bf16 rounding on the grouped
-                # path-metric sums is the same magnitude as the bf16 L
-                # store that already exists (A/B'd with iteration counts —
-                # see PERF r5)
-                af, bf = a_s, b_s
-            else:
-                af = tuple(x.astype(f32) for x in a_s)
-                bf = tuple(x.astype(f32) for x in b_s)
-            m = [None] * 4
-            for s in range(8):
-                ns0, g0 = out0[s]
-                ns1, g1 = out1[s]
-                t0 = af[s] + bf[ns0]
-                m[g0] = t0 if m[g0] is None else jnp.maximum(m[g0], t0)
-                t1 = af[s] + bf[ns1]
-                m[g1] = t1 if m[g1] is None else jnp.maximum(m[g1], t1)
-            if combine_bf16 and is_bf16:
-                m = [x.astype(f32) for x in m]
-            l0 = jnp.maximum(m[0] + g[0], m[1] + g[1])
-            l1 = jnp.maximum(m[2] + g[2], m[3] + g[3])
-            return l0 - l1
-
-        a = tuple(ainit[:, s, :] for s in range(8))
-        b = tuple(binit[:, s, :] for s in range(8))
-
-        def acq_body(t, ab):
-            a, b = ab
-            a = acs_fwd(a, ua[t], va[t], la_ref[t])
-            j = acq - 1 - t
-            b = acs_bwd(b, ub[j], vb[j], lb_ref[j])
-            return (a, b)
-
-        a, b = jax.lax.fori_loop(0, acq, acq_body, (a, b))
-
-        # bf16 renorm cadence is every 4 trellis steps INDEPENDENT of the
-        # unroll factor (metric growth past ~4 gammas rounds away the ACS
-        # margins — PERF "bf16 trellis" entry); deeper unrolls only amortize
-        # loop overhead, numerics identical to unroll=4
-        def _renorm_at(half, a, b):
-            if is_bf16 and (half % 4 == 3 or half == unroll - 1):
-                a = tuple(x - a[0] for x in a)
-                b = tuple(x - b[0] for x in b)
-            return a, b
-
-        def store_body(tu, ab):
-            a, b = ab
-            for half in range(unroll):
-                t = unroll * tu + half
-                for s in range(8):
-                    astore[t, s, :, :] = a[s].astype(sdt)
-                a = acs_fwd(a, um[t], vm[t])
-                j = win - 1 - t
-                for s in range(8):
-                    bstore[j - half_w, s, :, :] = b[s].astype(sdt)
-                if pinpad:
-                    b = acs_bwd(b, um[j] + lm_ref[j], vm[j])
-                else:
-                    b = acs_bwd(b, um[j], vm[j],
-                                None if nofreeze else lm_ref[j])
-                a, b = _renorm_at(half, a, b)
-            return (a, b)
-
-        a, b = jax.lax.fori_loop(0, half_w // unroll, store_body, (a, b))
-
-        nii_tu = (win - acq - half_w) // unroll
-        nii_half = (win - acq - half_w) % unroll
-
-        def comb_body(tu, ab):
-            a, b = ab
-            for half in range(unroll):
-                t = half_w + unroll * tu + half
-                j = win - 1 - t
-                if half == nii_half:
-                    @pl.when(tu == nii_tu)
-                    def _():
-                        for s in range(8):
-                            a_nii_ref[:, s, :] = a[s].astype(jnp.float32)
-                            b_nii_ref[:, s, :] = b[s].astype(jnp.float32)
-                bs_t = tuple(bstore[t - half_w, s, :, :] for s in range(8))
-                l_ref[t, :, :] = combine(a, bs_t, um[t], vm[t]
-                                         ).astype(l_ref.dtype)
-                as_j = tuple(astore[j, s, :, :] for s in range(8))
-                l_ref[j, :, :] = combine(as_j, b, um[j], vm[j]
-                                         ).astype(l_ref.dtype)
-                a = acs_fwd(a, um[t], vm[t])
-                if pinpad:
-                    b = acs_bwd(b, um[j] + lm_ref[j], vm[j])
-                else:
-                    b = acs_bwd(b, um[j], vm[j],
-                                None if nofreeze else lm_ref[j])
-                a, b = _renorm_at(half, a, b)
-            return (a, b)
-
-        jax.lax.fori_loop(0, half_w // unroll, comb_body, (a, b))
-
-    return kernel
-
-
-@partial(jax.jit, static_argnames=("win", "acq", "n", "tl", "mdtype",
-                                   "nofreeze", "pinpad", "unroll",
-                                   "combine_bf16", "interpret"))
-def half_iteration_blane(um, vm, a_l, b_l, win: int, acq: int, n: int,
-                         tl: int = 128, mdtype: str = "f32",
-                         nofreeze: bool = False, pinpad: bool = False,
-                         unroll: int = 4, combine_bf16: bool = False,
-                         interpret: bool = False):
-    """Flipped-tile half-iteration: um/vm (win, n_w, cpad) metric-dtype
-    arrays with codeblocks on the minor (lane) axis; a_l/b_l
-    (n_w, 8, cpad) boundary inits.  cpad % tl == 0.
-
-    Returns (l (win, n_w, cpad) metric dtype, a_next, b_next
-    (n_w, 8, cpad) f32 — already shifted into init position and
-    normalised, same NII convention as half_iteration_pallas).
-    """
-    dt = jnp.bfloat16 if mdtype.startswith("bf16") else jnp.float32
-    sdt = jnp.float32 if mdtype == "bf16_f32store" else dt
-    if interpret:
-        # unroll only restructures the fori_loop body (bf16 renorm cadence
-        # is fixed at every 4 steps, so numerics are unroll-invariant —
-        # pinned by test_pipeline_decoders unroll-equality); deep unrolls
-        # quadruple the interpret-mode trace and slow CPU CI ~2x for zero
-        # benefit there, so clamp them to the r4 body size
-        unroll = min(unroll, 4)
-    # n_w comes from the operand shape: callers may sublane-pad the window
-    # axis with dead windows (r5 — makes the statics' flat gather output a
-    # true bitcast of this kernel's 3D operand); _live_masks marks them
-    # fully dead, so pinpad/freeze handle them like any dead tail.
+def _half_plain(um, vm, a_l, b_l, *, win: int, acq: int, n: int, dt):
+    """Plain ``lax.scan`` half-iteration (same contract as the kernel;
+    returns the un-shifted NII exports)."""
+    fwd, bwd, _, _ = _wiring()
+    rnd = _rounding(dt)
     n_w = um.shape[1]
-    cpad = um.shape[2]
-    assert um.shape[0] == win and n_w >= -(-n // win) and cpad % tl == 0
-    um = um.astype(dt)
-    vm = vm.astype(dt)
+    lv_main, lv_aacq, lv_bacq = _live_masks(win, acq, n_w, n)
+    pad = jnp.asarray(np.where(lv_main, 0.0, PIN)[:, :, None], dt)
+    um, vm = rnd(um), rnd(vm)
 
+    # acquisition inputs: alpha reads the previous window's tail, beta the
+    # next window's head (shift by one window along axis 1)
     def acq_slices(x):
-        # alpha acquisition: previous window's tail (shift +1 window along
-        # the sublane axis); beta acquisition: next window's head
-        tail = x[win - acq:]
-        aacq = jnp.concatenate(
-            [jnp.zeros_like(tail[:, :1]), tail[:, :-1]], axis=1)
-        head = x[:acq]
-        bacq = jnp.concatenate(
-            [head[:, 1:], jnp.zeros_like(head[:, :1])], axis=1)
-        return aacq, bacq
+        tail, head = x[win - acq:], x[:acq]
+        zero = jnp.zeros_like(tail[:, :1])
+        return (jnp.concatenate([zero, tail[:, :-1]], 1),
+                jnp.concatenate([head[:, 1:], zero], 1))
 
     ua, ub = acq_slices(um)
     va, vb = acq_slices(vm)
-    a_f = a_l.astype(dt)
-    b_f = b_l.astype(dt)
-    pinpad = bool(pinpad) and not nofreeze
+    a = tuple(rnd(a_l[:, s, :].astype(dt)) for s in range(8))
+    b = tuple(rnd(b_l[:, s, :].astype(dt)) for s in range(8))
 
-    lv_main, lv_aacq, lv_bacq = _live_masks(win, acq, n_w, n)
-    npdt = np.float32 if dt == jnp.float32 else "bfloat16"
-    if pinpad:
-        lm = np.broadcast_to(((1.0 - lv_main) * PIN).astype(npdt)[:, :, None],
-                             (win, n_w, tl)).copy()
-    else:
-        lm = np.broadcast_to(lv_main[:, :, None], (win, n_w, tl)).copy()
-    la = np.broadcast_to(lv_aacq[:, :, None], (acq, n_w, tl)).copy()
-    lb = np.broadcast_to(lv_bacq[:, :, None], (acq, n_w, tl)).copy()
+    def acq_step(ab, xs):
+        a, b = ab
+        uat, vat, lat, ubt, vbt, lbt = xs
+        a_new = _acs(a, _gammas(uat, vat, rnd), fwd, rnd)
+        b_new = _acs(b, _gammas(ubt, vbt, rnd), bwd, rnd)
+        return (tuple(jnp.where(lat, x, y) for x, y in zip(a_new, a)),
+                tuple(jnp.where(lbt, x, y) for x, y in zip(b_new, b))), None
 
-    kernel = _make_kernel_blane(win, acq, n_w, n, tl, mdtype=dt, sdtype=sdt,
-                                nofreeze=nofreeze, pinpad=pinpad,
-                                unroll=unroll, combine_bf16=combine_bf16)
+    (a, b), _ = jax.lax.scan(
+        acq_step, (a, b),
+        (ua, va, jnp.asarray(lv_aacq)[:, :, None],
+         ub[::-1], vb[::-1], jnp.asarray(lv_bacq)[::-1, :, None]))
 
-    def bs3(t_len):
-        return pl.BlockSpec((t_len, n_w, tl), lambda i: (0, 0, i),
-                            memory_space=pltpu.VMEM)
+    # main sweeps: step t advances alpha over position t and beta over
+    # position win-1-t; ys hold the pre-step metrics, renorm every RENORM
+    def group(x):
+        return x.reshape(win // RENORM, RENORM, *x.shape[1:])
 
-    def bcast3(shape):
-        return pl.BlockSpec(shape, lambda i: tuple([0] * len(shape)),
-                            memory_space=pltpu.VMEM)
+    xs = tuple(map(group, (um, vm, rnd(um + pad)[::-1], vm[::-1])))
 
-    grid = (cpad // tl,)
-    l, a_nii, b_nii = pl.pallas_call(
+    def main_step(ab, xs_g):
+        a, b = ab
+        pre = []
+        for h in range(RENORM):
+            ut, vt, uj, vj = (x[h] for x in xs_g)
+            pre.append((jnp.stack(a), jnp.stack(b)))
+            a = _acs(a, _gammas(ut, vt, rnd), fwd, rnd)
+            b = _acs(b, _gammas(uj, vj, rnd), bwd, rnd)
+        if dt == jnp.bfloat16:
+            a, b = _renorm(a, b, rnd)
+        return (a, b), tuple(jnp.stack(p) for p in zip(*pre))
+
+    _, (alphas, betas) = jax.lax.scan(main_step, (a, b), xs)
+    alphas = alphas.reshape(win, 8, *um.shape[1:])     # alpha before pos t
+    betas = betas.reshape(win, 8, *um.shape[1:])[::-1]  # beta after pos t
+    l = _combine([alphas[:, s] for s in range(8)],
+                 [betas[:, s] for s in range(8)], um, vm).astype(dt)
+    # NII exports: alpha at (w+1)*win - acq, beta at w*win + acq
+    return (l, alphas[win - acq].transpose(1, 0, 2).astype(jnp.float32),
+            betas[acq - 1].transpose(1, 0, 2).astype(jnp.float32))
+
+
+def _make_kernel(*, win: int, acq: int, n: int, dt, lane_blocks: int, rnd):
+    """Pallas (Triton route) kernel body for one block of chains of one
+    window; each chain's recursion runs in one thread.  ``rnd`` rounds each
+    bf16 operation when the body is lowered by XLA (interpret mode);
+    compiled for the GPU it is the identity."""
+    fwd, bwd, _, _ = _wiring()
+    half_w = win // 2
+    bf16 = dt == jnp.bfloat16
+
+    def kernel(u_ref, v_ref, up_ref, vp_ref, un_ref, vn_ref, ai_ref, bi_ref,
+               l_ref, an_ref, bn_ref, as_ref, bs_ref):
+        # u/v: this block's (win, block) metrics; up/vp: the previous
+        # window's tail rows, un/vn: the next window's head rows
+        w = pl.program_id(0) // lane_blocks
+
+        def uv(t):
+            return rnd(u_ref[t, :]), rnd(v_ref[t, :])
+
+        def acs(m, uu, vv, wiring):
+            return _acs(m, _gammas(uu, vv, rnd), wiring, rnd)
+
+        def renorm(a, b):
+            return _renorm(a, b, rnd) if bf16 else (a, b)
+
+        a = tuple(rnd(ai_ref[0, s, :].astype(dt)) for s in range(8))
+        b = tuple(rnd(bi_ref[0, s, :].astype(dt)) for s in range(8))
+
+        # acquisition (the neighbour blocks are clamped at the ends, where
+        # every position is dead)
+        def acq_body(t, ab):
+            a, b = ab
+            pa = w * win - acq + t
+            a_new = acs(a, rnd(up_ref[t, :]), rnd(vp_ref[t, :]), fwd)
+            live_a = (pa >= 0) & (pa < n)
+            a = tuple(jnp.where(live_a, x, y) for x, y in zip(a_new, a))
+            j = acq - 1 - t
+            b_new = acs(b, rnd(un_ref[j, :]), rnd(vn_ref[j, :]), bwd)
+            live_b = (w + 1) * win + j < n
+            b = tuple(jnp.where(live_b, x, y) for x, y in zip(b_new, b))
+            return a, b
+
+        a, b = jax.lax.fori_loop(0, acq, acq_body, (a, b))
+
+        def beta_step(b, j, uj, vj):
+            pad = (w * win + j >= n).astype(dt) * PIN
+            return acs(b, rnd(uj + pad), vj, bwd)
+
+        def store_body(q, ab):
+            a, b = ab
+            for h in range(RENORM):
+                t = RENORM * q + h
+                j = win - 1 - t
+                for s in range(8):
+                    as_ref[0, t, s, :] = a[s]
+                    bs_ref[0, j - half_w, s, :] = b[s]
+                a = acs(a, *uv(t), fwd)
+                b = beta_step(b, j, *uv(j))
+            return renorm(a, b)
+
+        def comb_body(q, ab):
+            a, b = ab
+            for h in range(RENORM):
+                t = RENORM * q + h
+                j = win - 1 - t
+                ut, vt = uv(t)
+                uj, vj = uv(j)
+                bs = [bs_ref[0, t - half_w, s, :] for s in range(8)]
+                l_ref[t, :] = _combine(a, bs, ut, vt).astype(dt)
+                as_ = [as_ref[0, j, s, :] for s in range(8)]
+                l_ref[j, :] = _combine(as_, b, uj, vj).astype(dt)
+                a = acs(a, ut, vt, fwd)
+                b = beta_step(b, j, uj, vj)
+            return renorm(a, b)
+
+        a, b = jax.lax.fori_loop(0, half_w // RENORM, store_body, (a, b))
+        a, b = jax.lax.fori_loop(half_w // RENORM, (win - acq) // RENORM,
+                                 comb_body, (a, b))
+        # NII exports at step win-acq: alpha at (w+1)*win - acq and beta
+        # at w*win + acq, both pre-step
+        for s in range(8):
+            an_ref[0, s, :] = a[s].astype(jnp.float32)
+            bn_ref[0, s, :] = b[s].astype(jnp.float32)
+        jax.lax.fori_loop((win - acq) // RENORM, win // RENORM, comb_body,
+                          (a, b))
+
+    return kernel
+
+
+def _half_kernel(um, vm, a_l, b_l, *, win: int, acq: int, n: int, dt,
+                 block: int, num_warps: int, interpret: bool):
+    """The Pallas kernel behind the half-iteration contract (returns the
+    un-shifted NII exports).  Chains are flattened window-major and cut
+    into blocks of ``block`` chains, so every program works on one window;
+    its block specs also hand it the neighbouring windows' acquisition
+    rows and one slot of the half-window alpha/beta scratch."""
+    assert win % acq == 0, (win, acq)
+    n_w, cpad = um.shape[1], um.shape[2]
+    cp = -(-cpad // block) * block
+    if cp != cpad:
+        lane_pad = lambda x: jnp.pad(x, ((0, 0), (0, 0), (0, cp - cpad)))
+        um, vm, a_l, b_l = map(lane_pad, (um, vm, a_l, b_l))
+    lane_blocks = cp // block
+    n_blocks = n_w * lane_blocks
+    kernel = _make_kernel(win=win, acq=acq, n=n, dt=dt,
+                          lane_blocks=lane_blocks,
+                          rnd=_rounding(dt) if interpret else _exact)
+    f32 = jnp.float32
+    rows = pl.BlockSpec((win, block), lambda i: (0, i))
+    tail = pl.BlockSpec((acq, block), lambda i: (
+        win // acq - 1, jnp.maximum(i - lane_blocks, 0)))
+    head = pl.BlockSpec((acq, block), lambda i: (
+        0, jnp.minimum(i + lane_blocks, n_blocks - 1)))
+    state = pl.BlockSpec((1, 8, block), lambda i: (
+        i // lane_blocks, 0, i % lane_blocks))
+    store = pl.BlockSpec((1, win // 2, 8, block), lambda i: (i, 0, 0, 0))
+    store_shape = jax.ShapeDtypeStruct((n_blocks, win // 2, 8, block), dt)
+    u2, v2 = um.reshape(win, n_w * cp), vm.reshape(win, n_w * cp)
+    l, a_nii, b_nii, _, _ = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[bcast3((win, n_w, tl)), bcast3((acq, n_w, tl)),
-                  bcast3((acq, n_w, tl)),
-                  bs3(win), bs3(win), bs3(acq), bs3(acq), bs3(acq), bs3(acq),
-                  pl.BlockSpec((n_w, 8, tl), lambda i: (0, 0, i),
-                               memory_space=pltpu.VMEM),
-                  pl.BlockSpec((n_w, 8, tl), lambda i: (0, 0, i),
-                               memory_space=pltpu.VMEM)],
-        out_specs=[bs3(win),
-                   pl.BlockSpec((n_w, 8, tl), lambda i: (0, 0, i),
-                                memory_space=pltpu.VMEM),
-                   pl.BlockSpec((n_w, 8, tl), lambda i: (0, 0, i),
-                                memory_space=pltpu.VMEM)],
-        out_shape=[jax.ShapeDtypeStruct((win, n_w, cpad), dt),
-                   jax.ShapeDtypeStruct((n_w, 8, cpad), jnp.float32),
-                   jax.ShapeDtypeStruct((n_w, 8, cpad), jnp.float32)],
-        scratch_shapes=[pltpu.VMEM((win // 2, 8, n_w, tl), sdt),
-                        pltpu.VMEM((win // 2, 8, n_w, tl), sdt)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=96 * 1024 * 1024),
+        grid=(n_blocks,),
+        in_specs=[rows, rows, tail, tail, head, head, state, state],
+        out_specs=[rows, state, state, store, store],
+        out_shape=[jax.ShapeDtypeStruct((win, n_w * cp), dt),
+                   jax.ShapeDtypeStruct((n_w, 8, cp), f32),
+                   jax.ShapeDtypeStruct((n_w, 8, cp), f32),
+                   store_shape, store_shape],
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=num_warps,
+                                                 num_stages=1),
         interpret=interpret,
-    )(jnp.asarray(lm), jnp.asarray(la), jnp.asarray(lb),
-      um, vm, ua, va, ub, vb, a_f, b_f)
+        name="turbo_half_iteration",
+    )(u2, v2, u2, v2, u2, v2, a_l, b_l)
+    l = l.reshape(win, n_w, cp)
+    if cp != cpad:
+        l, a_nii, b_nii = l[..., :cpad], a_nii[..., :cpad], b_nii[..., :cpad]
+    return l, a_nii, b_nii
 
-    # NII shift into init position + normalise (window axis is axis 0)
+
+@partial(jax.jit, static_argnames=("win", "acq", "n", "mdtype", "impl",
+                                   "block", "num_warps"))
+def half_iteration(um, vm, a_l, b_l, win: int, acq: int, n: int,
+                   mdtype: str = "f32", impl: str = "auto",
+                   block: int = BLOCK, num_warps: int = NUM_WARPS):
+    """Max-log-MAP half-iteration over step-major operands.
+
+    um/vm (win, n_w, cpad) channel metrics (u = systematic + a-priori,
+    v = parity); a_l/b_l (n_w, 8, cpad) window-boundary inits, already
+    pinned.  ``mdtype`` "f32" or "bf16" sets the trellis metric dtype.
+
+    ``impl``: "auto" picks by the platform the call is lowered for — the
+    Pallas kernel on CUDA, the plain scan elsewhere; "plain" and "kernel"
+    force one; "interpret" runs the kernel in the Pallas interpreter.
+    ``block``/``num_warps``: the kernel's launch shape.
+
+    Returns (l (win, n_w, cpad) in the metric dtype, a_next, b_next
+    (n_w, 8, cpad) f32 shifted into init position and normalised)."""
+    dt = {"f32": jnp.float32, "bf16": jnp.bfloat16}[mdtype]
+    _check_geometry(win, acq, n, um.shape[1])
+    args = (um.astype(dt), vm.astype(dt), a_l.astype(jnp.float32),
+            b_l.astype(jnp.float32))
+    geo = dict(win=win, acq=acq, n=n, dt=dt)
+    kern = partial(_half_kernel, **geo, block=block, num_warps=num_warps,
+                   interpret=impl == "interpret")
+    plain = partial(_half_plain, **geo)
+    if impl == "auto":
+        l, a_nii, b_nii = jax.lax.platform_dependent(*args, cuda=kern,
+                                                     default=plain)
+    else:
+        l, a_nii, b_nii = (plain if impl == "plain" else kern)(*args)
     a_next = jnp.roll(a_nii, 1, axis=0)
     b_next = jnp.roll(b_nii, -1, axis=0)
-    a_next = a_next - jnp.max(a_next, axis=1, keepdims=True)
-    b_next = b_next - jnp.max(b_next, axis=1, keepdims=True)
-    return l, a_next, b_next
+    return (l, a_next - jnp.max(a_next, axis=1, keepdims=True),
+            b_next - jnp.max(b_next, axis=1, keepdims=True))
 
 
-def _half_call(um, ua, ub, vm, va, vb, a_f, b_f, *, win, acq, n, n_w, gb,
-               tb, dt, sdt, fused, nofreeze, pinpad, pinpad_acq, interpret):
-    """Shared pallas_call wrapper over pre-laid-out step-major inputs.
+def half_iteration_natural(u, v, a_init, b_init, win: int, acq: int, n: int,
+                           mdtype: str = "f32", impl: str = "auto"):
+    """Natural-layout entry: u, v (B, N); a_init/b_init (B, n_w, 8).
 
-    um/vm: (win, bpad, n_we); ua/va/ub/vb: (acq, bpad, n_we);
-    a_f/b_f: (bpad, n_we, 8) folded boundary inits.  bpad % tb == 0.
-    Returns (l (win, bpad, n_we) in dt, a_nii, b_nii (bpad, n_we, 8) f32).
-    """
-    n_we = gb * n_w
-    bpad = um.shape[1]
-    assert bpad % tb == 0
-    grid = (bpad // tb,)
-    kernel = _make_kernel(win, acq, n_we, n, tb, mdtype=dt, sdtype=sdt,
-                          fused=fused, nofreeze=nofreeze, pinpad=pinpad,
-                          pinpad_acq=pinpad_acq)
-
-    def bs(shape_tail):
-        return pl.BlockSpec((tb, *shape_tail),
-                            lambda i: (i, *([0] * len(shape_tail))),
-                            memory_space=pltpu.VMEM)
-
-    def bs_stepmajor(t_len):
-        return pl.BlockSpec((t_len, tb, n_we), lambda i: (0, i, 0),
-                            memory_space=pltpu.VMEM)
-
-    def bcast(shape):
-        return pl.BlockSpec(shape, lambda i: tuple([0] * len(shape)),
-                            memory_space=pltpu.VMEM)
-
-    lv_main, lv_aacq, lv_bacq = _live_masks(win, acq, n_w, n)
-    if gb > 1:   # same positions for every folded block
-        lv_main, lv_aacq, lv_bacq = [np.tile(m, (1, gb))
-                                     for m in (lv_main, lv_aacq, lv_bacq)]
-    npdt = np.float32 if dt == jnp.float32 else "bfloat16"
-    if pinpad:
-        # pinned padding (main sweeps only): lm carries PIN*(1-live) pad
-        # blocks (pre-broadcast, metric dtype) that the kernel ADDS to u on
-        # dead positions — one elementwise add instead of the 8-state
-        # freeze blend (see PIN docstring).  The 16-step acquisition loop
-        # keeps the exact masked freeze (la/lb stay live masks).
-        lv_main = np.broadcast_to(
-            ((1.0 - lv_main) * PIN).astype(npdt)[:, None, :],
-            (win, tb, n_we)).copy()
-        mask_specs = [
-            pl.BlockSpec((win, tb, n_we), lambda i: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            bcast((acq, n_we)), bcast((acq, n_we))]
-    else:
-        mask_specs = [bcast((win, n_we)), bcast((acq, n_we)),
-                      bcast((acq, n_we))]
-    if pinpad_acq:
-        # variant for the Mosaic acq-cliff canary: the acquisition loop
-        # reads pin-pad addends instead of freeze masks
-        lv_aacq = ((1.0 - lv_aacq) * PIN).astype(npdt)
-        lv_bacq = ((1.0 - lv_bacq) * PIN).astype(npdt)
-    mask_args = (jnp.asarray(lv_main), jnp.asarray(lv_aacq),
-                 jnp.asarray(lv_bacq))
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=mask_specs + [
-                  bs_stepmajor(win), bs_stepmajor(win),
-                  bs_stepmajor(acq), bs_stepmajor(acq),
-                  bs_stepmajor(acq), bs_stepmajor(acq),
-                  bs((n_we, 8)), bs((n_we, 8))],
-        out_specs=[bs_stepmajor(win), bs((n_we, 8)), bs((n_we, 8))],
-        out_shape=[jax.ShapeDtypeStruct((win, bpad, n_we), dt),
-                   jax.ShapeDtypeStruct((bpad, n_we, 8), jnp.float32),
-                   jax.ShapeDtypeStruct((bpad, n_we, 8), jnp.float32)],
-        scratch_shapes=[pltpu.VMEM((win // 2 if fused else win, 8, tb, n_we), sdt),
-                        pltpu.VMEM((win // 2 if fused else win, 8, tb, n_we), sdt)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=96 * 1024 * 1024),
-        interpret=interpret,
-    )(*mask_args, um, vm, ua, va, ub, vb, a_f, b_f)
-
-
-def _nii_post(a_nii, b_nii, bsz: int, n_w: int):
-    """Unfold NII exports to (bsz, n_w, 8), shift into init position and
-    normalise (shared by both entry points)."""
-    bpad, n_we = a_nii.shape[0], a_nii.shape[1]
-    gb = n_we // n_w
-    a_nii = a_nii.reshape(bpad * gb, n_w, 8)
-    b_nii = b_nii.reshape(bpad * gb, n_w, 8)
-    a_next = jnp.roll(a_nii[:bsz], 1, axis=1)
-    b_next = jnp.roll(b_nii[:bsz], -1, axis=1)
-    a_next = a_next - jnp.max(a_next, axis=-1, keepdims=True)
-    b_next = b_next - jnp.max(b_next, axis=-1, keepdims=True)
-    return a_next, b_next
-
-
-@partial(jax.jit, static_argnames=("win", "acq", "n", "tb", "gb", "mdtype",
-                                   "fused", "nofreeze", "pinpad",
-                                   "pinpad_acq", "interpret"))
-def half_iteration_pallas(u, v, a_init, b_init, win: int, acq: int, n: int,
-                          tb: int = 8, gb: int = 1, mdtype: str = "f32",
-                          fused: bool = False, nofreeze: bool = False,
-                          pinpad: bool = False, pinpad_acq: bool = False,
-                          interpret: bool = False):
-    """u, v: (B, N) channel metrics; a_init/b_init (B, n_w, 8).
-
-    Returns (L (B, N), a_next (B, n_w, 8), b_next (B, n_w, 8)) matching the
-    XLA reference ``_half_iteration`` (same NII convention).
-
-    ``mdtype="bf16"`` runs the trellis arithmetic and the alpha/beta stores
-    in bfloat16 (metrics are NII-normalised each iteration, so their range
-    fits easily; max-log ACS tolerates the 8-bit mantissa).  Outputs stay
-    f32.
-
-    ``gb`` folds that many codeblocks into the lane (window) axis: windows
-    of different blocks are independent trellis chains, so extra blocks are
-    just extra windows.  This fills the 128-lane VPU axis when
-    n_w = ceil(n/win) is small (e.g. K=5824/win=128 -> n_w=46 -> 36 % lane
-    occupancy at gb=1, 92/128 at gb=2).
-    """
-    dt = jnp.bfloat16 if mdtype.startswith("bf16") else jnp.float32
-    u = u.astype(dt)
-    v = v.astype(dt)
-    a_init = a_init.astype(dt)
-    b_init = b_init.astype(dt)
-    bsz, n_in = u.shape
-    assert n_in == n
+    Returns (L (B, N), a_next, b_next (B, n_w, 8)) with the NII convention
+    of ``lteax.phy.fec.turbo._half_iteration``; a relayout onto
+    :func:`half_iteration`."""
+    bsz = u.shape[0]
     n_w = -(-n // win)
-    npad = n_w * win
-    pad = npad - n
+    pad = n_w * win - n
 
-    def resh(x):
-        xp = jnp.pad(x, ((0, 0), (0, pad)))
-        main = xp.reshape(bsz, n_w, win).transpose(2, 0, 1)   # (win, B, n_w)
-        # alpha acquisition: u[w*win - acq + j] = previous window's tail
-        tail = main[win - acq:, :, :]                          # (acq, B, n_w)
-        aacq = jnp.concatenate(
-            [jnp.zeros_like(tail[:, :, :1]), tail[:, :, :-1]], axis=2)
-        # beta acquisition: u[(w+1)*win + j] = next window's head
-        head = main[:acq, :, :]
-        bacq = jnp.concatenate(
-            [head[:, :, 1:], jnp.zeros_like(head[:, :, :1])], axis=2)
-        return main, aacq, bacq
+    def step_major(x):
+        x = jnp.pad(x, ((0, 0), (0, pad)))
+        return x.reshape(bsz, n_w, win).transpose(2, 1, 0)
 
-    um, ua, ub = resh(u)
-    vm, va, vb = resh(v)
-
-    # ---- fold gb codeblocks into the lane axis ----
-    padg = (-bsz) % gb
-    bf = (bsz + padg) // gb
-    n_we = gb * n_w
-
-    def fold_t(x):        # (t, B, n_w) -> (t, bf, gb*n_w)
-        xp = jnp.pad(x, ((0, 0), (0, padg), (0, 0)))
-        return xp.reshape(x.shape[0], bf, n_we)
-
-    def fold_i(x):        # (B, n_w, 8) -> (bf, gb*n_w, 8)
-        xp = jnp.pad(x, ((0, padg), (0, 0), (0, 0)))
-        return xp.reshape(bf, n_we, 8)
-
-    if gb > 1:
-        um, ua, ub, vm, va, vb = map(fold_t, (um, ua, ub, vm, va, vb))
-        a_init, b_init = fold_i(a_init), fold_i(b_init)
-
-    sdt = jnp.float32 if mdtype == "bf16_f32store" else dt
-    pinpad = bool(pinpad and fused)
-    grid0 = bf // tb if bf % tb == 0 else -(-bf // tb)
-    if bf % tb != 0:
-        padb = grid0 * tb - bf
-        um, ua, ub, vm, va, vb = [jnp.pad(x, ((0, 0), (0, padb), (0, 0)))
-                                  for x in (um, ua, ub, vm, va, vb)]
-        a_init = jnp.pad(a_init, ((0, padb), (0, 0), (0, 0)))
-        b_init = jnp.pad(b_init, ((0, padb), (0, 0), (0, 0)))
-    bpad = um.shape[1]
-
-    l_out, a_nii, b_nii = _half_call(
-        um, ua, ub, vm, va, vb, a_init, b_init, win=win, acq=acq, n=n,
-        n_w=n_w, gb=gb, tb=tb, dt=dt, sdt=sdt, fused=fused,
-        nofreeze=nofreeze, pinpad=pinpad, pinpad_acq=pinpad_acq,
-        interpret=interpret)
-
-    # unfold the gb blocks back out of the lane axis
-    l = (l_out.transpose(1, 2, 0)                 # (bpad, n_we, win)
-         .reshape(bpad * gb, n_w, win)
-         .reshape(bpad * gb, npad)[:bsz, :n])
-    a_next, b_next = _nii_post(a_nii, b_nii, bsz, n_w)
-    return l, a_next, b_next
+    l, a_next, b_next = half_iteration(
+        step_major(u), step_major(v), a_init.transpose(1, 2, 0),
+        b_init.transpose(1, 2, 0), win, acq, n, mdtype=mdtype, impl=impl)
+    l = l.transpose(2, 1, 0).reshape(bsz, n_w * win)[:, :n]
+    return l, a_next.transpose(2, 0, 1), b_next.transpose(2, 0, 1)
 
 
 # ---------------------------------------------------------------------------
-# Layout-domain glue (production fast path)
+# Layout-domain glue (production path)
 #
-# XProf r4: at B=384 the two half-iteration kernels cost ~7.4 ms while the
-# inter-iteration GLUE cost ~11 ms — almost all of it relayout copies
-# (natural (C, K) <-> step-major transposes around every kernel call) plus
-# s32 CRC conversions.  The fix: keep EVERY iteration-carried array in the
-# FLIPPED-tile kernel layout (win, n_w, C) — codeblocks on lanes — and
-# express the QPP interleave as XLA gathers whose indices COMPOSE the
-# permutation with the layout transform.  With C as the gather's offset
-# (pass-through) dimension, every gather's natural (points, batch)-minor
-# output IS the kernel layout: no operand reshapes, no relayout copies.
-# Natural order is materialized exactly once at the end (and lazily for the
-# compacted-retry subbatch, which keeps the natural-path machinery).
+# Every iteration-carried array stays in the kernel's step-major layout
+# (win, n_w, C), and the QPP interleave is expressed as XLA gathers whose
+# indices compose the permutation with the layout transform.  With C as the
+# gather's offset (pass-through) dimension, each gather's output is born in
+# kernel layout: no relayout copies between half-iterations.  Natural order
+# is materialized once at the end.
 # ---------------------------------------------------------------------------
 
 class _BlaneMaps:
-    """Precomputed numpy index maps for the flipped-tile layout glue.
+    """Precomputed numpy index maps for the step-major layout glue.
 
     Value at trellis position p = w*win + j of codeblock c lives at
     [j, w, c] of a (win, n_w, cpad) array.
@@ -918,34 +490,23 @@ def _blane_maps(k: int, n: int, win: int, n_w: int, d_len: int,
 
 _IN_BOUNDS = jax.lax.GatherScatterMode.PROMISE_IN_BOUNDS
 
-_ZERO_FOLD = True
-"""Planar statics: point dead positions at the pipeline's zero slot
-(True) vs multiply a 0/1 weight after the gather (False) — A/B switch."""
-
-_NW_PAD = 8
-"""Sublane multiple the layout path pads the window axis to (r5): the
-kernel tiles (n_w, lanes) and pads sublanes to 8 internally anyway, but
-building the index maps at the padded n_w makes the statics' 2D-flat
-gather output a true tile-compatible bitcast of the kernel's 3D operand
-(the reshape copies cost ~3.5 ms/batch at DL B=768).  1 disables (A/B)."""
-
 
 @lru_cache(maxsize=16)
 def _planar_maps(k: int, n: int, win: int, n_w: int, d_len: int,
                  rm_key, n_cb: int, sentinel: int):
-    """Static-gather maps for the PLANAR input form (r4).
+    """Static-gather maps for the PLANAR input form.
 
     ``rm_key`` is the (n_cb*3*d_len,) de-match index map into the planar
     LLR flat axis (sentinel = untransmitted position -> LLR 0).  Composes
     the rate de-match INTO the four layout static gathers, so the natural
-    (C, 3, D) llr_d intermediate never materializes — at B=768 that
-    intermediate cost ~12 ms (the de-match gather degraded to 4.7 ms at
-    this width plus a 5-op relayout chain).
+    (C, 3, D) llr_d intermediate never materializes.
 
-    Returns per-static (idx (win, n_w, n_cb, 1) int32 into the planar flat
-    axis, weight (win, n_w, n_cb, 1) f32 zeroing sentinel hits and dead
-    trellis positions).  Lane order of the gathered output is
-    c' = cb*B + sf (cb-major) — callers reorder bits once at the end.
+    Returns per-static idx (win, n_w, n_cb) int32 into the planar flat
+    axis.  Untransmitted (sentinel) and dead trellis positions point at
+    planar flat slot sentinel-1, which the pipeline guarantees reads 0.0
+    (a pad column), so no mask multiply follows the gather.  Lane order of
+    the gathered output is c' = cb*B + sf (cb-major) — callers reorder bits
+    once at the end.
     """
     rm_inv = np.frombuffer(rm_key, dtype=np.int32).astype(np.int64)
     base = _blane_maps(k, n, win, n_w, d_len, None)
@@ -958,16 +519,9 @@ def _planar_maps(k: int, n: int, win: int, n_w: int, d_len: int,
         gidx = (np.arange(n_cb)[None, None, :] * 3 * d_len
                 + m2[..., 0:1] * d_len + m2[..., 1:2])  # (win, n_w, n_cb)
         p = rm_inv[gidx]
-        # zero-fold (r5): untransmitted (sentinel) and dead trellis
-        # positions point at planar flat slot sentinel-1, which the
-        # pipeline guarantees reads 0.0 (zeroed descramble sign on a pad
-        # column) — no mask multiply after the gather.  The weight form
-        # (idx0, w) is kept alongside for the _ZERO_FOLD=False A/B.
         dead = (p == sentinel) | ~liven[..., None]
         out[name] = np.where(dead, sentinel - 1, p).astype(np.int32)
-        w = (~dead).astype(np.float32)
-        out[name + "_w"] = (np.where(dead, 0, p).astype(np.int32), w)
-    # retry-subbatch natural rebuild: per-cb (3*d_len,) planar indices
+    # natural rebuild: per-cb (3*d_len,) planar indices
     g3 = (np.arange(n_cb)[:, None] * 3 * d_len + np.arange(3 * d_len))
     p3 = rm_inv[g3]
     out["cb_idx"] = np.where(p3 == sentinel, 0, p3).astype(np.int32)
@@ -975,28 +529,18 @@ def _planar_maps(k: int, n: int, win: int, n_w: int, d_len: int,
     return out
 
 
-def _bl_static_planar(p2t, idx, wgt=None):
+def _bl_static_planar(p2t, idx):
     """TRANSPOSED planar LLRs (planar_flat, B) -> (win, n_w, n_cb*B)
     layout, de-match and RE-extraction composed into the indices; B passes
-    through as the gather's offset dim.  The transposed operand makes every
-    gather point a CONTIGUOUS B-row read (the (B, flat) orientation strode
-    ~200 KB per element and measured slower than the d_llr path it
-    replaced).
-
-    The whole chain runs 2D-FLAT (win*n_w*ncb, B): the earlier 4D
-    (win, n_w, ncb, B) intermediates made XLA tile the (ncb=13, B) minor
-    pair — a 13->16 pad materialized by a reshape copy per static, plus a
-    relayout copy on the loop carry (~4 ms/batch at B=768, r5 trace).  The
-    final merge to (win, n_w, ncb*B) is a free bitcast from the flat
-    row-major shape."""
+    through as the gather's offset dim, so every gather point is one
+    contiguous B-row read.  The chain runs 2D-flat (win*n_w*ncb, B); the
+    final merge to (win, n_w, ncb*B) is a free bitcast."""
     win, n_w, ncb = idx.shape[:3]
     dn = jax.lax.GatherDimensionNumbers(
         offset_dims=(1,), collapsed_slice_dims=(0,),
         start_index_map=(0,))
     g = jax.lax.gather(p2t, jnp.asarray(idx).reshape(-1, 1), dn,
                        (1, p2t.shape[1]), mode=_IN_BOUNDS)
-    if wgt is not None:
-        g = g * jnp.asarray(wgt, g.dtype).reshape(-1, 1)
     return g.reshape(win, n_w, ncb * g.shape[1])
 
 
@@ -1004,7 +548,7 @@ def _bl_static(llr3, idx):
     """(C, 3, d_len) LLRs -> (win, n_w, C) layout (C passes through as the
     gather's offset dim — the output is born in kernel layout).  The
     (stream, col) starts are pre-linearized into the row-major (3*d_len)
-    flat axis (see _bl_chain)."""
+    flat axis."""
     c, _, d_len = llr3.shape
     idx = jnp.asarray(idx, jnp.int32)
     lin = idx[..., 0] * d_len + idx[..., 1]
@@ -1017,13 +561,8 @@ def _bl_static(llr3, idx):
 
 def _bl_chain(x, idx):
     """Layout -> layout permuted gather (QPP composed into the indices);
-    each point reads one contiguous C-row of the operand.
-
-    The operand is bitcast-flattened to (win*n_w, C) and the (j, w) start
-    pairs pre-linearized: with 2D starts XLA chose a (n_w, win, C)-major
-    operand layout and inserted a transpose copy of the kernel output
-    before every chain gather (~0.4 ms each at B=768, r5 trace).  A 1D
-    row index into the row-major flat view leaves no layout freedom."""
+    each point reads one contiguous C-row of the operand, indexed by its
+    row in the row-major (win*n_w, C) view."""
     win, n_w, c = x.shape
     idx = jnp.asarray(idx, jnp.int32)
     lin = idx[..., 0] * n_w + idx[..., 1]
@@ -1034,43 +573,9 @@ def _bl_chain(x, idx):
                           (1, c), mode=_IN_BOUNDS)
 
 
-def _bl_static_2d(llr3, idx):
-    """r4 2D-start variant of _bl_static.  Kept selectable: at the MIMO
-    dual-codeword geometry (B=192, C=4992, 3-iteration/level-2-retry
-    regime) the old static+chain pair measures ~14% faster END-TO-END than
-    the flat pair (961 vs 824 Mbit/s, r5 same-session A/B) via an XLA
-    fusion interaction, while DL (+70) and UL (+30..100) prefer flat.
-    Selection: DecoderTuning.blane_flat / blane_flat_mimo."""
-    dn = jax.lax.GatherDimensionNumbers(
-        offset_dims=(2,), collapsed_slice_dims=(1, 2),
-        start_index_map=(1, 2))
-    return jax.lax.gather(llr3, jnp.asarray(idx), dn,
-                          (llr3.shape[0], 1, 1), mode=_IN_BOUNDS)
-
-
-def _bl_chain_2d(x, idx):
-    """r4 2D-start variant of _bl_chain (see _bl_static_2d)."""
-    dn = jax.lax.GatherDimensionNumbers(
-        offset_dims=(2,), collapsed_slice_dims=(0, 1),
-        start_index_map=(0, 1))
-    return jax.lax.gather(x, jnp.asarray(idx), dn,
-                          (1, 1, x.shape[2]), mode=_IN_BOUNDS)
-
-
-def _bl_nat_2d(x, idx, c: int):
-    """r4 2D-start variant of _bl_nat (see _bl_static_2d)."""
-    dn = jax.lax.GatherDimensionNumbers(
-        offset_dims=(1,), collapsed_slice_dims=(0, 1),
-        start_index_map=(0, 1))
-    out = jax.lax.gather(x, jnp.asarray(idx, jnp.int32), dn,
-                         (1, 1, x.shape[2]), mode=_IN_BOUNDS)
-    return out[:, :c]
-
-
 def _bl_nat(x, idx, c: int):
     """Layout (win, n_w, cpad) -> (k, c) natural-position-major array
-    (callers transpose in their consuming fusion).  Flat-linearized like
-    _bl_chain."""
+    (callers transpose in their consuming fusion)."""
     win, n_w, cp = x.shape
     idx = jnp.asarray(idx, jnp.int32)
     lin = idx[..., 0] * n_w + idx[..., 1]
@@ -1085,9 +590,9 @@ def _bl_nat(x, idx, c: int):
 def _crc_par_blane(l2, m_flat):
     """Per-lane CRC pass/fail on a layout-domain LLR array (incl. pad
     lanes).  The CRC matrix rows are reordered into layout order
-    (GF(2)-linear), so the contraction is ONE MXU matmul over the
-    bitcast-flattened (j, w) axes — bf16 0/1 inputs, f32 accumulation
-    (exact for counts < 2^24)."""
+    (GF(2)-linear), so the contraction is one matmul over the flattened
+    (j, w) axes: bf16 0/1 operands with f32 accumulation, exact for counts
+    < 2^24 under any matmul precision."""
     win, n_w, cpad = l2.shape
     bits = (l2 < 0).astype(jnp.bfloat16).reshape(win * n_w, cpad)
     s = jax.lax.dot_general(jnp.asarray(m_flat, jnp.bfloat16), bits,
@@ -1100,67 +605,38 @@ def _crc_ok_blane(l2, m_flat, c: int):
     return _crc_par_blane(l2, m_flat)[:c]
 
 
-def _pin_blane(a_l, b_l, lastw: int = -1):
-    """Flipped-tile _pin_boundaries: window axis is axis 0.  ``lastw`` is
-    the last LIVE window (the termination pin must land there, not on a
-    sublane-pad window)."""
+def _pin_blane(a_l, b_l):
+    """Pin window 0's alpha to the exact start state and the last window's
+    beta to the exact termination state (window axis 0)."""
     pin = jnp.full((8,), NEG, jnp.float32).at[0].set(0.0)
-    a = a_l.at[0, :, :].set(pin[:, None])
-    b = b_l.at[lastw, :, :].set(pin[:, None])
-    return a, b
+    return a_l.at[0].set(pin[:, None]), b_l.at[-1].set(pin[:, None])
 
 
 def _pin_boundaries(a_init, b_init):
-    """Pin window 0's alpha to the exact start state and the last window's
-    beta to the exact termination state (state 0)."""
+    """Natural-layout _pin_blane (window axis 1)."""
     pin = jnp.full((8,), NEG, jnp.float32).at[0].set(0.0)
     a = a_init.at[:, 0, :].set(pin)
     b = b_init.at[:, -1, :].set(pin)
     return a, b
 
 
-def _in_b576_fault_zone(c: int) -> bool:
-    """KNOWN_ISSUES (r4): the r4 layout decode program deterministically
-    crashed the TPU worker for C in the B≈576-class zone (7360/7488 at
-    K=5824).  EXPIRED r5: under the r5 program (flat 1D-linearized
-    gathers, sublane-padded n_w, zero-fold statics) C=7360/7424/7488 all
-    decode clean on the real chip — the construction guard is inactive.
-    The ``b576-layout-fault`` canary (guard-bypassing repro) stays as the
-    each-round regression probe; re-activate the zone check here if it
-    flips back to still-broken."""
-    return False
-
-
 def turbo_decode_batch_pallas(llr_d, k: int, n_iter: int = 6, win: int = 128,
                               acq: int = 32, ext_scale: float = 0.75,
-                              tb: int = 8, gb: int | None = None,
                               early_crc: str | None = None,
                               mdtype: str = "f32",
-                              fused: bool | None = None,
-                              nofreeze: bool | None = None,
-                              pinpad: bool | None = None,
                               retry_m: int | None = None,
                               retry_levels: int | None = None,
-                              retry_stage: str | None = None,
                               layout: bool | None = None,
                               planar: tuple | None = None,
-                              flat_maps: bool | None = None,
                               planar_int8: bool | None = None,
-                              blane_unroll: int | None = None,
-                              combine_bf16: bool | None = None,
                               return_n_iter: bool = False,
+                              impl: str = "auto",
                               interpret: bool = False):
-    """Batched turbo decode with the Pallas half-iteration kernel.
+    """Batched turbo decode on the half-iteration kernel.
 
-    llr_d: (C, 3, K+4) -> (C, K) hard bits (int8 since r4: the decoded-
-    bits pipeline — lax.cond carries, retry merges, desegmentation — was
-    ~6 ms of s32 HBM traffic at B=768; CRC matmuls cast up internally).
-    Matches
+    llr_d: (C, 3, K+4) -> (C, K) hard bits (int8).  Matches
     ``lteax.phy.fec.turbo.turbo_decode_batch`` numerically (same windowed
     max-log-MAP + NII schedule).
-
-    gb=None picks the lane fold automatically: enough codeblocks share the
-    128-lane axis to fill it (bounded by the batch size).
 
     early_crc ("24A"/"24B"/None): CRC-based early termination — stop
     iterating once EVERY codeblock's CRC checks (the standard production
@@ -1169,55 +645,29 @@ def turbo_decode_batch_pallas(llr_d, k: int, n_iter: int = 6, win: int = 128,
     remaining iterations are skipped batch-wide.
 
     layout (default on via DecoderTuning.layout_glue): run the full-batch
-    iterations entirely in the kernel's step-major layout — the natural
-    (C, K) <-> (win, B, n_w) relayout copies around every kernel call
-    vanish, the QPP interleave rides composed gathers (_BlaneMaps), and the
-    per-iteration CRC runs as a layout-domain bf16 matmul.  The compacted
-    retry keeps the natural-order machinery on its small subbatch.  Same
-    max-log arithmetic; bf16 rounding may differ in the last ulp of the
-    extrinsic sums (u is pre-summed as static+extrinsic instead of
-    subtracting twice), which existing decode tests tolerate.
+    iterations entirely in the kernel's step-major layout — the QPP
+    interleave rides composed gathers (_BlaneMaps) and the per-iteration
+    CRC runs as a layout-domain matmul.  Same max-log arithmetic; bf16
+    rounding may differ in the last ulp of the extrinsic sums (u is
+    pre-summed as static+extrinsic instead of subtracting twice).
+
+    ``impl`` selects the half-iteration: "auto" (the kernel on CUDA, the
+    plain scan elsewhere), "kernel" or "plain"; ``interpret`` runs the
+    kernel in the Pallas interpreter (tests).
     """
     from lteax.phy.tables.turbo_qpp import qpp_interleaver, qpp_deinterleaver
 
-    # None-valued knobs resolve through DecoderTuning.from_env() — the
-    # frozen profile (env vars stay overrides via its _ENV table, not
-    # ambient reads here).  Provenance for the defaults:
-    #  - fused: half the VMEM stores, no separate combine pass (351 -> 373
-    #    Mbit/s on the DL bench);
-    #  - nofreeze (default OFF): dropping the beta main-sweep freeze is ~3%
-    #    faster per half-iteration but loses the termination pin, and the
-    #    batch-wide CRC early stop then pays 1-2 EXTRA full iterations near
-    #    threshold (2x2 MIMO bench: 6/6 vs 4/6 iterations, -25%);
-    #  - pinpad: data-level pin (margin PIN on dead positions) instead of
-    #    freeze blends, KEEPING the termination pin — DL 591->602 @25dB,
-    #    MIMO 392->406, threshold-neutral.
-    if fused is None or nofreeze is None or pinpad is None or layout is None:
-        from lteax.phy.tuning import DecoderTuning
-        _t = DecoderTuning.from_env()
-        fused = _t.fused if fused is None else fused
-        nofreeze = _t.nofreeze if nofreeze is None else nofreeze
-        pinpad = _t.pinpad if pinpad is None else pinpad
-        layout = _t.layout_glue if layout is None else layout
-    if (flat_maps is None or blane_unroll is None or combine_bf16 is None
+    if (retry_m is None or retry_levels is None or layout is None
             or planar_int8 is None):
         from lteax.phy.tuning import DecoderTuning
-        _tt = DecoderTuning.from_env()
-        flat_maps = _tt.blane_flat if flat_maps is None else flat_maps
-        blane_unroll = (_tt.blane_unroll if blane_unroll is None
-                        else blane_unroll)
-        combine_bf16 = (_tt.combine_bf16 if combine_bf16 is None
-                        else combine_bf16)
-        planar_int8 = (_tt.planar_int8 if planar_int8 is None
-                       else planar_int8)
-    # flat (1D-linearized, r5) vs 2D-start (r4) layout gathers — see
-    # _bl_static_2d for the per-pipeline A/B that keeps both alive
-    _st = _bl_static if flat_maps else _bl_static_2d
-    _ch = _bl_chain if flat_maps else _bl_chain_2d
-    _nt = _bl_nat if flat_maps else _bl_nat_2d
-    fused = bool(fused and acq <= win // 2)
-    nofreeze = bool(nofreeze and fused)
-    pinpad = bool(pinpad and fused and not nofreeze)
+        _t = DecoderTuning.from_env()
+        retry_m = _t.retry_m if retry_m is None else retry_m
+        retry_levels = _t.retry_levels if retry_levels is None else retry_levels
+        layout = _t.layout_glue if layout is None else layout
+        planar_int8 = _t.planar_int8 if planar_int8 is None else planar_int8
+    impl = "interpret" if interpret else impl
+    half = partial(half_iteration, win=win, acq=acq, n=k + 3, mdtype=mdtype,
+                   impl=impl)
     if planar is not None:
         # (planar2 (B_sf, flat), rm_inv np.int32 (n_cb*3*d_len,), n_cb,
         # sentinel) — the de-match map into the planar demap output; the
@@ -1231,18 +681,10 @@ def turbo_decode_batch_pallas(llr_d, k: int, n_iter: int = 6, win: int = 128,
         d_len = llr_d.shape[2]
     n = k + 3
     n_w = -(-n // win)
-    if gb is None:
-        gb = max(1, min(128 // n_w, c))
     pi = jnp.asarray(qpp_interleaver(k))
     inv = jnp.asarray(qpp_deinterleaver(k))
 
-    if retry_m is None or retry_levels is None:
-        from lteax.phy.tuning import DecoderTuning
-        _t = DecoderTuning.from_env()
-        retry_m = _t.retry_m if retry_m is None else retry_m
-        retry_levels = _t.retry_levels if retry_levels is None else retry_levels
-
-    # extrinsic/l carries run in the metric dtype (bf16-safe: see combine)
+    # extrinsic/l carries run in the metric dtype (bf16-safe: see _combine)
     dt_e = jnp.bfloat16 if mdtype == "bf16" else jnp.float32
     zero = jnp.zeros((c, n_w, 8), jnp.float32)
 
@@ -1267,12 +709,9 @@ def turbo_decode_batch_pallas(llr_d, k: int, n_iter: int = 6, win: int = 128,
             u1 = jnp.concatenate([(ls_ + le21).astype(le21.dtype),
                                   st1_.astype(le21.dtype)], axis=1)
             a1p, b1p = _pin_boundaries(a1, b1)
-            l1, a1n, b1n = half_iteration_pallas(u1, v1_, a1p, b1p, win, acq,
-                                                 n, tb=tb, gb=gb,
-                                                 mdtype=mdtype, fused=fused,
-                                                 nofreeze=nofreeze,
-                                                 pinpad=pinpad,
-                                                 interpret=interpret)
+            l1, a1n, b1n = half_iteration_natural(u1, v1_, a1p, b1p, win,
+                                                  acq, n, mdtype=mdtype,
+                                                  impl=impl)
             return l1[:, :k].astype(le21.dtype), a1n, b1n
 
         def ext12(l1, le21):
@@ -1283,12 +722,9 @@ def turbo_decode_batch_pallas(llr_d, k: int, n_iter: int = 6, win: int = 128,
             u2 = jnp.concatenate([(lsi_ + la2).astype(le12.dtype),
                                   st2_.astype(le12.dtype)], axis=1)
             a2p, b2p = _pin_boundaries(a2, b2)
-            l2, a2n, b2n = half_iteration_pallas(u2, v2_, a2p, b2p, win, acq,
-                                                 n, tb=tb, gb=gb,
-                                                 mdtype=mdtype, fused=fused,
-                                                 nofreeze=nofreeze,
-                                                 pinpad=pinpad,
-                                                 interpret=interpret)
+            l2, a2n, b2n = half_iteration_natural(u2, v2_, a2p, b2p, win,
+                                                  acq, n, mdtype=mdtype,
+                                                  impl=impl)
             l2 = l2[:, :k].astype(le12.dtype)
             le21n = (ext_scale * (l2 - lsi_ - la2)
                      ).astype(le12.dtype)[:, inv]
@@ -1296,34 +732,22 @@ def turbo_decode_batch_pallas(llr_d, k: int, n_iter: int = 6, win: int = 128,
 
         return dec1, dec2, ext12
 
-    # ---- layout-domain fast path (flipped tile; see _BlaneMaps) ----
-    use_layout = (bool(layout) and fused and not _in_b576_fault_zone(c)
-                  and (early_crc is None or 0 < retry_m < c))
-    n_w_l = -(-n_w // _NW_PAD) * _NW_PAD   # sublane-padded windows (below)
+    # ---- layout-domain path (see _BlaneMaps) ----
+    use_layout = bool(layout) and (early_crc is None or 0 < retry_m < c)
     if planar is not None:
-        pm = _planar_maps(k, n, win, n_w_l, d_len, rm_inv_np.tobytes(),
+        pm = _planar_maps(k, n, win, n_w, d_len, rm_inv_np.tobytes(),
                           n_cb, sentinel)
         p2 = planar2.astype(dt_e)
-        pm_idx = jnp.asarray(pm["cb_idx"])
-        pm_w = jnp.asarray(pm["cb_w"], dt_e)
         if not use_layout:
-            # natural fallback: materialize llr_d (standard subframe-major
+            # natural path: materialize llr_d (standard subframe-major
             # block order) from the planar input in one gather
+            pm_idx = jnp.asarray(pm["cb_idx"])
+            pm_w = jnp.asarray(pm["cb_w"], dt_e)
             vals = p2[:, pm_idx.reshape(-1)] * pm_w.reshape(-1)
             llr_d = vals.reshape(bsf, n_cb, 3, d_len).reshape(c, 3, d_len)
     if use_layout:
-        # sublane-pad the window axis to a multiple of 8 with dead windows
-        # (r5): the kernel tiles (n_w, lanes) and pads 46->48 sublanes
-        # internally ANYWAY, but building the maps at the padded n_w makes
-        # the statics' 2D-flat gather output a true tile-compatible bitcast
-        # of the kernel's 3D (win, n_w, C) operand — the reshape copies
-        # (~3.5 ms/batch at B=768, trace-attributed) vanish.  Dead windows
-        # are fully masked by _live_masks; the termination pin lands on the
-        # last LIVE window via lastw.
-        lastw = n_w - 1
-        maps = _blane_maps(k, n, win, n_w_l, d_len, early_crc)
-        tl = 128
-        cpad = -(-c // tl) * tl
+        maps = _blane_maps(k, n, win, n_w, d_len, early_crc)
+        cpad = -(-c // BLOCK) * BLOCK
         m01 = jnp.asarray(maps.m01, dt_e)
 
         def _pad_lanes(g):
@@ -1332,67 +756,49 @@ def turbo_decode_batch_pallas(llr_d, k: int, n_iter: int = 6, win: int = 128,
             return g
 
         if planar is not None:
-            p2t = p2.T        # one relayout; 4 contiguous-row gathers after
+            p2t = p2.T        # one transpose; 4 contiguous-row gathers after
             qs_e = None
             if planar_int8:
-                # int8-quantized statics (r5 lever #1): one per-batch
-                # scale, gathers move half the bytes, dequant multiply
-                # fuses into the gather consumer.  The zero sentinel slot
-                # stays exactly zero in int8; the uniform scale commutes
-                # through the max-log decode up to quantization noise.
+                # int8-quantized statics: one per-batch scale, gathers move
+                # half the bytes, the dequant multiply fuses into the
+                # gather consumer.  The zero sentinel slot stays exactly
+                # zero in int8; the uniform scale commutes through the
+                # max-log decode up to quantization noise.
                 p2f = planar2.astype(jnp.float32)
                 qs = jnp.maximum(jnp.max(jnp.abs(p2f)), 1e-20) / 127.0
-                # quantize AFTER the transpose: the relayout runs in f32
-                # (int8 transposes hit narrow-dtype relayout packing)
                 p2t = jnp.clip(jnp.round(p2f.T / qs), -127,
                                127).astype(jnp.int8)
                 qs_e = qs.astype(dt_e)
 
             def _mk_pl(name):
-                if _ZERO_FOLD:
-                    g = _bl_static_planar(p2t, pm[name])
-                else:
-                    g = _bl_static_planar(p2t, *pm[name + "_w"])
+                g = _bl_static_planar(p2t, pm[name])
                 if qs_e is not None:
                     g = g.astype(dt_e) * qs_e
                 return _pad_lanes(g)
 
-            u1s = _mk_pl("u1s")
-            v1l = _mk_pl("v1s")
-            u2s = _mk_pl("u2s")
-            v2l = _mk_pl("v2s")
+            u1s, v1l, u2s, v2l = map(_mk_pl, ("u1s", "v1s", "u2s", "v2s"))
         else:
             llr3 = llr_d.astype(dt_e)
             m_n = jnp.asarray(maps.m_n, dt_e)
 
             def mk_static(idx):
-                return _pad_lanes(_st(llr3, idx) * m_n)
+                return _pad_lanes(_bl_static(llr3, idx) * m_n)
 
-            u1s = mk_static(maps.u1s)
-            v1l = mk_static(maps.v1s)
-            u2s = mk_static(maps.u2s)
-            v2l = mk_static(maps.v2s)
+            u1s, v1l, u2s, v2l = map(mk_static, (maps.u1s, maps.v1s,
+                                                 maps.u2s, maps.v2s))
 
         def one_iteration_l(le21_l, a1, b1, a2, b2):
             u1 = u1s + m01 * le21_l
-            a1p, b1p = _pin_blane(a1, b1, lastw)
-            l1, a1n, b1n = half_iteration_blane(
-                u1, v1l, a1p, b1p, win, acq, n, tl=tl, mdtype=mdtype,
-                nofreeze=nofreeze, pinpad=pinpad, unroll=blane_unroll,
-                combine_bf16=combine_bf16, interpret=interpret)
+            l1, a1n, b1n = half(u1, v1l, *_pin_blane(a1, b1))
             e12 = ext_scale * (l1.astype(dt_e) - u1)
-            u2 = u2s + m01 * _ch(e12, maps.chain_pi)
-            a2p, b2p = _pin_blane(a2, b2, lastw)
-            l2, a2n, b2n = half_iteration_blane(
-                u2, v2l, a2p, b2p, win, acq, n, tl=tl, mdtype=mdtype,
-                nofreeze=nofreeze, pinpad=pinpad, unroll=blane_unroll,
-                combine_bf16=combine_bf16, interpret=interpret)
-            le21n = _ch(ext_scale * (l2.astype(dt_e) - u2),
+            u2 = u2s + m01 * _bl_chain(e12, maps.chain_pi)
+            l2, a2n, b2n = half(u2, v2l, *_pin_blane(a2, b2))
+            le21n = _bl_chain(ext_scale * (l2.astype(dt_e) - u2),
                               maps.chain_inv)
             return le21n, a1n, b1n, a2n, b2n, l2
 
-        zero_l = jnp.zeros((win, n_w_l, cpad), dt_e)
-        zero_ab = jnp.zeros((n_w_l, 8, cpad), jnp.float32)
+        zero_l = jnp.zeros((win, n_w, cpad), dt_e)
+        zero_ab = jnp.zeros((n_w, 8, cpad), jnp.float32)
         init_l = (zero_l, zero_ab, zero_ab, zero_ab, zero_ab)
 
         def bits_std(bits_cp):
@@ -1403,24 +809,20 @@ def turbo_decode_batch_pallas(llr_d, k: int, n_iter: int = 6, win: int = 128,
             return (bits_cp.reshape(n_cb, bsf, k)
                     .transpose(1, 0, 2).reshape(c, k))
 
+        def bits_nat(l2):
+            return ((_bl_nat(l2, maps.nat_inv, c) < 0).T).astype(jnp.int8)
+
         if early_crc is None:
             def body(carry, _):
                 st, _ = carry
                 out = one_iteration_l(*st)
-                # the l2 carry slot is allocated in dt_e; the kernel's
-                # metric dtype differs for mdtype="bf16_f32store" (advisor
-                # r4): cast so the scan carry types match
-                return (out[:5], out[5].astype(dt_e)), None
+                return (out[:5], out[5]), None
             (_, l2), _ = jax.lax.scan(body, (init_l, zero_l), None,
                                       length=n_iter)
-            bits = bits_std(
-                ((_nt(l2, maps.nat_inv, c) < 0).T).astype(jnp.int8))
+            bits = bits_std(bits_nat(l2))
             return (bits, jnp.int32(n_iter)) if return_n_iter else bits
 
         m_perm_flat = maps.m_perm_flat
-
-        def bits_nat(l2):
-            return ((_nt(l2, maps.nat_inv, c) < 0).T).astype(jnp.int8)
 
     from lteax.phy.fec.crc import crc_matrix
 
@@ -1429,9 +831,8 @@ def turbo_decode_batch_pallas(llr_d, k: int, n_iter: int = 6, win: int = 128,
     # DEC2's in the interleaved domain (row-permuted M[pi] — CRC is
     # GF(2)-linear, a codeword is g(x)-divisible iff its full-length CRC is
     # zero).  When every codeblock already passes after DEC1, the DEC2 half
-    # (kernel + QPP gathers) is skipped via lax.cond — at operating points
-    # where convergence lands mid-iteration this saves a full half-kernel
-    # pass; worst case matches the fixed-n_iter schedule plus the checks.
+    # (kernel + QPP gathers) is skipped via lax.cond; worst case matches
+    # the fixed-n_iter schedule plus the checks.
     if early_crc is not None:
         m_nat = jnp.asarray(crc_matrix(k, early_crc), dtype=jnp.int32)
         m_perm = jnp.asarray(crc_matrix(k, early_crc)[np.asarray(
@@ -1444,7 +845,7 @@ def turbo_decode_batch_pallas(llr_d, k: int, n_iter: int = 6, win: int = 128,
         irrelevant to the stop condition (the compacted retry pads its
         subbatch with already-converged blocks — their transient DEC1
         re-check failures must not delay the stop).
-        Returns (bits_natural (c,K) int32, full_iterations_used)."""
+        Returns (bits_natural (c,K) int8, full_iterations_used)."""
         dec1, dec2, ext12 = make_halves(data)
 
         def _allok(blockok):
@@ -1485,12 +886,10 @@ def turbo_decode_batch_pallas(llr_d, k: int, n_iter: int = 6, win: int = 128,
         return bits, carry[0]
 
     if use_layout:
-        # ---- layout-NATIVE multi-level compacted retry (r4) ----
-        # The retry subbatch is a LANE-SLICE of the already-materialized
-        # layout statics and carried state — no natural-order rebuild, no
-        # planar/llr_d captures inside the conditional branches (the
-        # natural rebuild gather measured 11 ms and the captured planar
-        # operands bloated the cond to 12.6 ms at B=768).
+        # ---- layout-native multi-level compacted retry ----
+        # The retry subbatch is a lane-slice of the already-materialized
+        # layout statics and carried state — no natural-order rebuild and
+        # no planar/llr_d captures inside the conditional branches.
         chain_pi_j = jnp.asarray(maps.chain_pi)
         chain_inv_j = jnp.asarray(maps.chain_inv)
         nat_id_j = jnp.asarray(maps.nat_id)
@@ -1520,22 +919,15 @@ def turbo_decode_batch_pallas(llr_d, k: int, n_iter: int = 6, win: int = 128,
             def body(carry):
                 it, _, _, le21, a1, b1, a2, b2, _ = carry
                 u1 = u1s_s + m01 * le21
-                a1p, b1p = _pin_blane(a1, b1, lastw)
-                l1, a1n, b1n = half_iteration_blane(
-                    u1, v1_s, a1p, b1p, win, acq, n, tl=tl, mdtype=mdtype,
-                    nofreeze=nofreeze, pinpad=pinpad, interpret=interpret)
+                l1, a1n, b1n = half(u1, v1_s, *_pin_blane(a1, b1))
                 ok1 = _allok(_crc_par_blane(l1, m_nat_flat))
 
                 def do_dec2(_):
                     e12 = ext_scale * (l1.astype(dt_e) - u1)
-                    u2 = u2s_s + m01 * _ch(e12, chain_pi_j)
-                    a2p, b2p = _pin_blane(a2, b2, lastw)
-                    l2, a2n, b2n = half_iteration_blane(
-                        u2, v2_s, a2p, b2p, win, acq, n, tl=tl,
-                        mdtype=mdtype, nofreeze=nofreeze, pinpad=pinpad,
-                        interpret=interpret)
+                    u2 = u2s_s + m01 * _bl_chain(e12, chain_pi_j)
+                    l2, a2n, b2n = half(u2, v2_s, *_pin_blane(a2, b2))
                     ok2 = _allok(_crc_par_blane(l2, m_perm_flat))
-                    le21n = _ch(ext_scale * (l2.astype(dt_e) - u2),
+                    le21n = _bl_chain(ext_scale * (l2.astype(dt_e) - u2),
                                       chain_inv_j)
                     return (le21n, a2n, b2n, l2.astype(dt_e), ok2,
                             jnp.bool_(False))
@@ -1557,36 +949,18 @@ def turbo_decode_batch_pallas(llr_d, k: int, n_iter: int = 6, win: int = 128,
             # interleaved when it ran DEC2 — select the index map (static
             # constants; jnp.where keeps the gather single)
             sel = jnp.where(from1, nat_id_j, nat_inv_j)
-            bits = ((_nt(llast, sel, lanes) < 0).T).astype(jnp.int8)
+            bits = ((_bl_nat(llast, sel, lanes) < 0).T).astype(jnp.int8)
             return bits, carry[0]
 
         statics = (u1s, v1l, u2s, v2l)
         ign_pad = jnp.asarray(np.arange(cpad) >= c)
 
-        def _lane_pick(x, sel):
-            """Dynamic lane selection as a one-hot MXU matmul (r5): a
-            direct x[:, :, idxp] gather along the minor lane axis made XLA
-            relayout every (win, n_w, C) operand to lane-major first
-            (~0.4 ms copy per carried array at B=768, trace-attributed);
-            contracting the lane axis against a one-hot (C, tlr) matrix
-            reads the native layout.  Exact: each column selects exactly
-            one lane (f32 accumulation of a single product; HIGHEST keeps
-            f32 operands unrounded on the MXU)."""
-            out = jax.lax.dot_general(
-                x, sel.astype(jnp.bfloat16 if x.dtype == jnp.bfloat16
-                              else x.dtype),
-                (((x.ndim - 1,), (0,)), ((), ())),
-                precision=jax.lax.Precision.HIGHEST,
-                preferred_element_type=jnp.float32)
-            return out.astype(x.dtype)
-
         def compact_at_l(kk, state_k, bits_k, okb_k, n_fail_k):
-            tlr = -(-retry_m // tl) * tl
+            tlr = -(-retry_m // BLOCK) * BLOCK
             idx = jnp.argsort(okb_k)[:retry_m]        # failing blocks first
             idxp = jnp.pad(idx, (0, tlr - retry_m))
-            sel = (jnp.arange(cpad)[:, None] == idxp[None, :])
-            subs = tuple(_lane_pick(x, sel) for x in statics)
-            sub_state = tuple(_lane_pick(x, sel) for x in state_k)
+            subs = tuple(jnp.take(x, idxp, axis=-1) for x in statics)
+            sub_state = tuple(jnp.take(x, idxp, axis=-1) for x in state_k)
             ign = jnp.pad(okb_k[idx], (0, tlr - retry_m),
                           constant_values=True)
             sub_bits, sub_it = run_earlystop_l(
@@ -1607,9 +981,8 @@ def turbo_decode_batch_pallas(llr_d, k: int, n_iter: int = 6, win: int = 128,
                     bits_f, it_f = run_earlystop_l(
                         statics, state_k, n_iter - kk, ign_pad)
                     return bits_f[:c], it_f
-                bits, extra = jax.lax.cond(n_fail_k <= retry_m, compact,
-                                           full, None)
-                return bits, extra
+                return jax.lax.cond(n_fail_k <= retry_m, compact, full,
+                                    None)
 
             def deeper(_):
                 le21n, a1n, b1n, a2n, b2n, l2n = one_iteration_l(*state_k)
@@ -1654,18 +1027,14 @@ def turbo_decode_batch_pallas(llr_d, k: int, n_iter: int = 6, win: int = 128,
         bits, iters = run_earlystop(data_full, init, n_iter)
         return (bits, iters) if return_n_iter else bits
 
-    # ---- multi-level compacted retry (production fast path) ----
+    # ---- multi-level compacted retry ----
     # One full iteration for the whole batch, then ONLY the codeblocks that
     # still fail CRC keep iterating, gathered into a retry_m-block subbatch
-    # (at comfortable margins a handful of stragglers out of thousands force
-    # the batch-wide stop to run a whole extra iteration — measured 8/4992
-    # failing after iteration 1 at 25 dB).  When MORE than retry_m blocks
-    # fail (threshold regime), run ANOTHER full-batch iteration and check
-    # again, up to ``retry_levels`` full iterations — 2x2 MIMO at 25 dB
-    # measures 4704/4992 failing after iteration 1 but only 144 after
-    # iteration 2: the single-level scheme fell back to a FULL-batch
-    # iteration 3 for those 144, paying ~30x the compact cost.  Beyond
-    # retry_levels, fall back to the full-batch early-stop loop.
+    # (at comfortable margins a handful of stragglers out of thousands
+    # would otherwise force a whole extra batch-wide iteration).  When MORE
+    # than retry_m blocks fail (threshold regime), run ANOTHER full-batch
+    # iteration and check again, up to ``retry_levels`` full iterations;
+    # beyond that, fall back to the full-batch early-stop loop.
     def compact_at(kk, state_k, bits_k, okb_k, n_fail_k):
         """Gather the (<= retry_m) failing blocks and finish them alone."""
         idx = jnp.argsort(okb_k)[:retry_m]        # failing blocks first
@@ -1691,9 +1060,7 @@ def turbo_decode_batch_pallas(llr_d, k: int, n_iter: int = 6, win: int = 128,
         if kk >= min(retry_levels, n_iter - 1):
             def full(_):
                 return run_earlystop(data_full, state_k, n_iter - kk)
-            bits, extra = jax.lax.cond(n_fail_k <= retry_m, compact, full,
-                                       None)
-            return bits, extra
+            return jax.lax.cond(n_fail_k <= retry_m, compact, full, None)
 
         def deeper(_):
             le21n, a1n, b1n, a2n, b2n, l2n = one_iteration(*state_k)

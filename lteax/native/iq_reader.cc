@@ -3,8 +3,8 @@
 // (reference capability: the GNU Radio file_source + int8->complex
 // conversion blocks feeding LTE_fdd_dl_file_scan, and the enodeb radio
 // buffer loop — the host-native IO layer of the framework.  SURVEY.md §2.6
-// C2/C8: the TPU framework's host side must feed >=30.72 Msps x N carriers
-// without starving chips; this module is the native producer: pread-based
+// C2/C8: the framework's host side must feed >=30.72 Msps x N carriers
+// without starving the devices; this module is the native producer: pread-based
 // chunk reads, SIMD-friendly int8->float conversion, and a double-buffered
 // background-prefetch stream so conversion overlaps device compute.)
 //

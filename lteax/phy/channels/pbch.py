@@ -7,7 +7,7 @@ blind antenna detection via CRC mask.)
 The 40 ms codeword (MIB 24 bits + masked CRC16 → TBCC → 1920 bits normal CP)
 is spread over 4 frames.  The decoder sees one frame's quarter and blindly
 resolves (quarter phase q, n_ant) — we batch all 12 hypotheses through ONE
-vmapped Viterbi, TPU-style, instead of the reference's serial retry loop.
+vmapped Viterbi instead of the reference's serial retry loop.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@
 liblte_phy_pdcch_channel_encode`` / ``liblte_phy_pdcch_channel_decode`` with
 serial blind search over candidates.)
 
-TPU-native design: the REG quadruplet interleaver + cell-ID cyclic shift is
+Design: the REG quadruplet interleaver + cell-ID cyclic shift is
 ONE precomputed permutation; blind decoding batches all search-space
 candidates through a single vmapped Viterbi (the reference retries serially).
 """

@@ -4,7 +4,7 @@
 liblte_phy_pdsch_channel_encode`` / ``liblte_phy_pdsch_channel_decode`` —
 the end-to-end hot loop of the whole framework, per SURVEY.md §3.5.)
 
-TPU-native design: segmentation/rate-matching collapse into ONE precomputed
+Design: segmentation/rate-matching collapse into ONE precomputed
 global index vector (per transport-block geometry) so encode is a single
 gather and soft de-matching a single scatter-add over all codeblocks;
 scrambling is a sign flip with a matmul-generated Gold sequence; the turbo
@@ -82,7 +82,7 @@ def _global_rm_inv(geom: PdschGeometry):
     Returns (inv (C*3D,), injective): inv[p] = position in e of d-flat bit p,
     or G (a zero sentinel) if never transmitted.  Valid only when every bit
     is transmitted at most once (no circular-buffer wrap), in which case
-    soft de-matching is a gather — far cheaper on TPU than scatter-add."""
+    soft de-matching is a gather instead of a scatter-add."""
     idx = _global_rm_idx(geom).astype(np.int64)
     d_total = geom.info.c * 3 * (geom.k + 4)
     counts = np.bincount(idx, minlength=d_total)
@@ -125,10 +125,8 @@ def soft_dematch(llrs_scr: jnp.ndarray, geom: PdschGeometry,
     matching is injective (the sub-block interleaver decomposes into strided
     runs — no gather, see ratematch.make_rate_unmatch_structured);
     ``structured=None`` resolves :class:`lteax.phy.tuning.DecoderTuning`'s
-    ``struct_dematch`` knob (env-overridable).  The gather is the default on
-    merit: the composed-program crash that originally forced structured off
-    EXPIRED at the r3 canary run, and the gather still measures faster in
-    the production composition (KNOWN_ISSUES.md).  Non-injective rate
+    ``struct_dematch`` knob (env-overridable); the gather is the default.
+    Non-injective rate
     matching (HARQ repetition) always takes the gather-sum path."""
     import jax
     d_len = geom.k + 4
@@ -165,7 +163,7 @@ def soft_dematch(llrs_scr: jnp.ndarray, geom: PdschGeometry,
 # varying TBS per TTI must not grow these without bound
 @lru_cache(maxsize=64)
 def _global_rm_inv_planar(geom: PdschGeometry, npad: int) -> np.ndarray:
-    """Inverse de-match map for PLANAR demap output (kernels/demap.py):
+    """Inverse de-match map for PLANAR demap output (mod.demap_planar):
     interleaved codeword position g = s*m + j lives at planar flat position
     j*npad + s; the zero sentinel points at the appended zeros column."""
     inv, injective = _global_rm_inv(geom)

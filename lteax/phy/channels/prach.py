@@ -4,7 +4,7 @@
 liblte_phy_generate_prach`` / ``liblte_phy_detect_prach``.)
 
 Preamble formats 0-3 (FDD): length-839 Zadoff-Chu at 1.25 kHz subcarrier
-spacing.  TPU-native design: generation is an 839-point DFT placed into one
+spacing.  Design: generation is an 839-point DFT placed into one
 big IFFT; detection is the classic frequency-domain correlator — multiply
 the received window's 839 bins by conj(root DFT), one 1024-ish IFFT, find
 peaks per cyclic-shift zone.  Both batch over (roots x windows).

@@ -4,7 +4,7 @@ UL-SCH coding with the channel interleaver (36.211 §5.3/§5.5, 36.212 §5.2.2).
 (reference capability: ``liblte/src/liblte_phy.cc ::
 liblte_phy_pusch_channel_encode`` / ``_decode``, ``generate_dmrs_pusch``.)
 
-TPU-native design mirrors the PDSCH path: all permutations (channel
+The design mirrors the PDSCH path: all permutations (channel
 interleaver, rate matching) are host-precomputed index vectors; the DFT
 transform precoding is one batched FFT; decode is gather → LS-DMRS chest →
 MMSE equalize → IDFT → max-log demap → scatter-add de-match → batched
@@ -31,8 +31,8 @@ DMRS_SYMS = (3, 10)
 @lru_cache(maxsize=None)
 def _idft_matrices(m_sc: int) -> tuple[np.ndarray, np.ndarray]:
     """(re, im) of the unitary IDFT matrix.  SC-FDMA sizes are
-    non-power-of-2 (e.g. 1200 = 2^4*3*5^2), where XLA's FFT falls back to
-    slow Bluestein paths on TPU; a dense matmul rides the MXU instead."""
+    non-power-of-2 (e.g. 1200 = 2^4*3*5^2); the dense matmul is the
+    comparison alternative to the FFT."""
     n = np.arange(m_sc)
     w = np.exp(2j * np.pi * np.outer(n, n) / m_sc) / np.sqrt(m_sc)
     return w.real.astype(np.float32), w.imag.astype(np.float32)
@@ -42,8 +42,8 @@ def _ul_dft(x: jnp.ndarray, inverse: bool) -> jnp.ndarray:
     """Unitary transform (de)precoding over the last axis.
 
     ``DecoderTuning.ul_dft`` (env override ``LTEAX_UL_DFT``) selects:
-      fft      — jnp.fft (XLA FFT; Bluestein fallback for non-pow2 on TPU)
-      factored — Cooley–Tukey N1·N2 split as two MXU matmuls (phy/dft.py);
+      fft      — jnp.fft (XLA FFT)
+      factored — Cooley–Tukey N1·N2 split as two matmuls (phy/dft.py);
                  ~17x fewer MACs than the dense-matmul alternative
       matmul   — dense unitary DFT matrix (kept for comparison)
     """
@@ -63,13 +63,9 @@ def _ul_dft(x: jnp.ndarray, inverse: bool) -> jnp.ndarray:
 
 
 def idft_unitary(x: jnp.ndarray, m_sc: int) -> jnp.ndarray:
-    """Unitary IDFT over the last axis via real MXU matmuls.
-
-    HIGHEST precision: the TPU default would round the 1200-deep
-    contraction through bf16, which costs 64QAM LLR fidelity.
-    NOTE: measured SLOWER than jnp.fft.ifft for the UL bench (the 6-pass
-    f32 emulation dominates) — kept as an alternative; the FFT path is the
-    default."""
+    """Unitary IDFT over the last axis via real matmuls at HIGHEST
+    precision (a reduced-precision 1200-deep contraction costs 64QAM LLR
+    fidelity).  An alternative to the default FFT path."""
     import jax
     wr, wi = _idft_matrices(m_sc)
     hi = jax.lax.Precision.HIGHEST
@@ -244,9 +240,9 @@ def chest_taps(m_sc: int) -> np.ndarray:
     guard for timing backoff); everything else is estimation noise.
     Zeroing it cuts chest noise by ~10*log10(m_sc/n_keep) dB — ~11.5 dB at
     m_sc=1200 — which is the difference between the UL turbo converging in
-    1 vs 2 full iterations at the 64QAM operating point (bench/ul_iterprobe
-    measured 1462/4992 codeblocks failing iteration 1 with the raw LS
-    estimate, 8-class with the denoised one)."""
+    1 vs 2 full iterations at the 64QAM operating point (1462/4992
+    codeblocks failed iteration 1 with the raw LS estimate, a handful with
+    the denoised one)."""
     n_keep = max(4, int(np.ceil(m_sc * 144 / 2048)) + 2)
     n_guard = max(2, m_sc // 128)
     mask = np.zeros(m_sc, np.float32)

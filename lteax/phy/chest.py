@@ -4,12 +4,11 @@
 liblte_phy_get_dl_subframe_and_ce`` — per-RE scalar interpolation loops —
 and ``de_pre_coder`` for TX-diversity combining.)
 
-TPU-native design: LS estimates at CRS positions are lifted to the full
-grid by TWO dense matmuls — a (n_sc x 2*n_rb) frequency interpolator and a
+Design: LS estimates at CRS positions are lifted to the full grid by TWO
+dense matmuls — a (n_sc x 2*n_rb) frequency interpolator and a
 (n_sym x n_pilot_sym) time interpolator — both precomputed host-side.
-Dense little matmuls beat scatter/loop interpolation on the MXU and batch
-over (subframe, port) for free.  Equalization/SFBC are fused elementwise
-VPU work.
+Dense little matmuls replace scatter/loop interpolation and batch over
+(subframe, port) for free.  Equalization/SFBC are fused elementwise work.
 """
 
 from __future__ import annotations
@@ -105,13 +104,10 @@ def estimate_channel(grid: jnp.ndarray, cfg: PhyConfig, n_cell_id: int,
     rx = flat[..., pidx]                                  # (..., n_ps, 2n_rb)
     ref = jnp.asarray(_crs_ref_values(cfg, n_cell_id, port, subframe))
     h_ls = rx * jnp.conj(ref)                             # |ref|^2 == 1
-    # Interpolation as REAL-decomposed batched MXU dots.  The weights are
-    # real, but casting them complex64 (the r1-r4 formulation) made XLA
-    # lower the interp as complex `convolution`s + 33 kLoop fusions — the
-    # ~1.8 ms/batch VPU-speed residual NEXT.md r4 diagnosed (HLO verified
-    # r5).  Two f32 einsums per re/im part ride the MXU instead; HIGHEST
-    # precision keeps the f32 accuracy the VPU path had (the dots are tiny,
-    # ~3 GFLOP at B=768, so the 6-pass cost is noise).
+    # Interpolation as REAL-decomposed batched dots: the weights are real,
+    # and casting them complex64 makes XLA lower the interp as complex
+    # convolutions.  Two f32 einsums per re/im part at HIGHEST precision
+    # keep f32 accuracy (the dots are tiny).
     vs = n_cell_id % 6
     shifts = tuple((_crs_v(port, sym % cfg.n_sym_slot,
                            sym // cfg.n_sym_slot) + vs) % 6 for sym in syms)
@@ -164,11 +160,12 @@ def _wiener_matrix(cfg: PhyConfig, shift: int, tau_max_us: float,
     """Host-precomputed Wiener interpolation matrix
     W = R_dp (R_pp + nv I)^{-1} for a STATIC noise prior.
 
-    On TPU, an on-device ``jnp.linalg.solve`` of the (n_p x n_p) system
-    runs its inner matmuls at default (bf16-rounded) precision — measured
-    catastrophic (0/384 CRCs at 100 PRB); Wiener filtering is robust to a
-    mismatched noise prior, so folding a fixed nv into a host-side inverse
-    is both faster (one MXU matmul) and numerically exact."""
+    An on-device ``jnp.linalg.solve`` of the (n_p x n_p) system runs its
+    inner matmuls at the backend's default precision, which may round
+    operands to bf16 or TF32 — catastrophic for this solve; Wiener
+    filtering is robust to a mismatched noise prior, so folding a fixed nv
+    into a host-side inverse is both faster (one matmul) and numerically
+    exact."""
     r_dp, r_pp = _mmse_pilot_corr(cfg, shift, tau_max_us)
     a = r_pp + np.complex64(nv_prior) * np.eye(r_pp.shape[0],
                                                dtype=np.complex64)
@@ -177,7 +174,7 @@ def _wiener_matrix(cfg: PhyConfig, shift: int, tau_max_us: float,
 
 def _cmatmul_hi(x: jnp.ndarray, w: np.ndarray) -> jnp.ndarray:
     """x @ w.T with the complex product split into 4 real HIGHEST-precision
-    matmuls (TPU default rounds through bf16)."""
+    matmuls (a reduced default precision would round the operands)."""
     import jax
     hi = jax.lax.Precision.HIGHEST
     wr, wi = np.ascontiguousarray(w.real.T), np.ascontiguousarray(w.imag.T)
@@ -197,8 +194,8 @@ def estimate_channel_mmse(grid: jnp.ndarray, cfg: PhyConfig, n_cell_id: int,
     under frequency-selective fading where linear interpolation breaks.
 
     A python-float ``noise_var`` uses the host-precomputed Wiener matrix
-    (TPU-exact, one matmul); a traced value falls back to the on-device
-    solve (CPU-accurate, but AVOID on TPU — see _wiener_matrix)."""
+    (exact, one matmul); a traced value falls back to the on-device solve
+    (accurate only at full f32 matmul precision — see _wiener_matrix)."""
     syms = crs_symbols(port, cfg)
     flat = grid.reshape(*grid.shape[:-2], -1)
     pidx = jnp.asarray(crs_flat_idx(cfg, n_cell_id, port)
@@ -209,7 +206,7 @@ def estimate_channel_mmse(grid: jnp.ndarray, cfg: PhyConfig, n_cell_id: int,
     vs = n_cell_id % 6
     # np.floating included: host-computed noise estimates commonly arrive as
     # np.float32, and missing them would silently fall back to the on-device
-    # solve that is bf16-catastrophic on TPU (see _wiener_matrix)
+    # solve (see _wiener_matrix)
     static_nv = isinstance(noise_var, (int, float, np.floating))
     if static_nv:
         # quantize to a coarse (1 dB) grid so per-subframe estimated floats

@@ -3,7 +3,7 @@
 The reference keeps a big mutable ``LIBLTE_PHY_STRUCT`` allocated by
 ``liblte_phy_init`` (reference: ``liblte/src/liblte_phy.cc :: liblte_phy_init``,
 ``liblte_phy_update_n_rb_dl``) holding FFTW plans and scratch buffers.  The
-TPU-native equivalent is an immutable, hashable dataclass whose derived fields
+equivalent here is an immutable, hashable dataclass whose derived fields
 are *shapes* — captured statically at ``jit`` trace time.  No buffers, no
 plans: XLA owns those.
 

@@ -3,10 +3,8 @@
 (reference capability: the FFTW plans behind ``liblte_phy`` UL transform
 precoding — ``liblte_phy_pusch_channel_encode``'s DFT spreading.)
 
-LTE UL M_sc = 12·N_PRB is never a power of two (2^a·3^b·5^c), where XLA's
-TPU FFT falls back to slow paths.  A dense DFT matmul rides the MXU but
-costs N² MACs at f32-emulated HIGHEST precision (measured slower than the
-FFT at N=1200).  This module splits N = N1·N2 (Cooley–Tukey) into two
+LTE UL M_sc = 12·N_PRB is never a power of two (2^a·3^b·5^c).  A dense
+DFT matmul costs N² MACs at HIGHEST precision.  This module splits N = N1·N2 (Cooley–Tukey) into two
 small matmuls plus a twiddle, cutting the contraction work from N² to
 N·(N1+N2) — ~17× fewer MACs at N=1200=30×40 — while keeping every
 contraction shallow enough that precision stays cheap.
@@ -48,8 +46,8 @@ def _consts(n: int, inverse: bool) -> tuple:
 
 
 def _cmatmul(a, b) -> jnp.ndarray:
-    """a @ b with complex split into 4 real HIGHEST-precision MXU matmuls
-    (the TPU default would round each contraction through bf16)."""
+    """a @ b with complex split into 4 real HIGHEST-precision matmuls
+    (a reduced default precision would round each contraction)."""
     hi = jax.lax.Precision.HIGHEST
     ar, ai = jnp.real(jnp.asarray(a)), jnp.imag(jnp.asarray(a))
     br, bi = jnp.real(jnp.asarray(b)), jnp.imag(jnp.asarray(b))
@@ -60,7 +58,7 @@ def _cmatmul(a, b) -> jnp.ndarray:
 
 def dft_factored(x: jnp.ndarray, inverse: bool = False,
                  unitary: bool = False) -> jnp.ndarray:
-    """DFT (or IDFT) over the last axis via two small MXU matmuls.
+    """DFT (or IDFT) over the last axis via two small matmuls.
 
     Matches ``np.fft.fft`` / ``np.fft.ifft`` conventions; ``unitary=True``
     scales by 1/sqrt(N) instead (both directions), matching the SC-FDMA

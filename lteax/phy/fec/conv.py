@@ -3,7 +3,7 @@
 Generators G0=133, G1=171, G2=165 (octal), MSB = current input bit.
 (reference capability: ``liblte/src/liblte_phy.cc :: conv_encode``.)
 
-TPU-native design: the encoder is three circular correlations of the input
+Design: the encoder is three circular correlations of the input
 with 7-tap GF(2) filters — expressed as XOR-sums of rolled bit vectors, fully
 vectorized, batchable over codewords.  No per-bit loop.
 """

@@ -3,10 +3,10 @@
 (reference capability: ``liblte/src/liblte_phy.cc :: calc_crc`` — a serial
 bit-loop in C++.)
 
-TPU-native design: CRC over GF(2) is a *linear* map, so for a fixed message
-length N the CRC is ``(bits @ M) mod 2`` with a precomputed (N, L) contribution
-matrix — an int matmul that XLA tiles onto the MXU and that batches for free
-over codewords.  No bit-serial loop ever runs on device.
+Design: CRC over GF(2) is a *linear* map, so for a fixed message length N
+the CRC is ``(bits @ M) mod 2`` with a precomputed (N, L) contribution
+matrix — one matmul that batches for free over codewords (0/1 operands
+with f32 or int accumulation are exact under any matmul precision).  No bit-serial loop ever runs on device.
 """
 
 from __future__ import annotations

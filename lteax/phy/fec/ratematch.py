@@ -5,7 +5,7 @@
 C++ loops building the sub-block interleaver and walking the circular buffer
 bit by bit.)
 
-TPU-native design: the whole pipeline (dummy-padding, sub-block interleaving,
+Design: the whole pipeline (dummy-padding, sub-block interleaving,
 circular-buffer collection, NULL skipping, redundancy-version offset) is a
 fixed permutation for a given (D, E, rv).  We precompute ONE index vector on
 host:  ``e = d_flat[idx]`` for matching, and rate *de*-matching with soft
@@ -109,7 +109,7 @@ def rate_unmatch(e_llrs: jnp.ndarray, idx: np.ndarray, d_len: int) -> jnp.ndarra
 
 def unmatch_inv_cycles(idx: np.ndarray, d_total: int) -> np.ndarray:
     """Occurrence-rank inverse maps turning a soft de-match scatter-add into
-    a SUM OF GATHERS (TPU scatters serialize; gathers don't).
+    a SUM OF GATHERS (no scatter).
 
     Returns inv (n_cycles, d_total) int32 with inv[k, p] = the e-position of
     the (k+1)-th transmission of d-flat bit p, or ``len(idx)`` (a zero
@@ -156,7 +156,7 @@ def _dematch_plan(d_len: int, e_len: int, rv: int, n_cb: int | None = None):
     maximal runs of constant d-stride 1 and constant (small) e-stride —
     each a strided slice of the e stream.  The d-transposed buffer is then
     a pure concat of e-slices and zero gaps; one reshape/transpose recovers
-    d.  TPU gathers run ~1 element/cycle; slices/concats are layout ops.
+    d.  Slices/concats are layout ops; no gather.
 
     Returns (runs, total_q, R, ND) with runs = [(q_start, e_start, e_stride,
     length)] in ascending q, or None when the mapping is not injective

@@ -2,11 +2,11 @@
 
 The RSC constituents are GF(2)-LINEAR: every parity bit and every tail bit
 is an XOR of input bits.  So a whole-codeblock encode is one bit-matrix
-product — (B, K) @ (K, K+6) on the MXU — instead of the K-step
-``lax.scan`` in :func:`lteax.phy.fec.turbo._rsc_encode` (fine for offline
-encode, ~K sequential dispatches under jit on TPU).  0/1 inputs are exact
-in bf16 and the MXU accumulates in f32 (sums < 2^24), so the mod-2 of the
-f32 accumulator is exact.
+product — (B, K) @ (K, K+6) — instead of the K-step ``lax.scan`` in
+:func:`lteax.phy.fec.turbo._rsc_encode` (fine for offline encode, K
+sequential steps under jit).  0/1 inputs are exact in TF32 and bf16 and the
+product accumulates in f32 (sums < 2^24), so the mod-2 of the f32
+accumulator is exact.
 
 (reference capability: none — liblte_phy has no receiver-side cancellation;
 SURVEY.md §2.2 layer-map row marks spatial multiplexing as beyond-reference.)
@@ -16,7 +16,6 @@ from __future__ import annotations
 
 from functools import lru_cache
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -71,9 +70,7 @@ def _rsc_matrix(k: int) -> np.ndarray:
 
 
 def _rsc_matrix_dev(k: int):
-    # f32 storage: 0/1 is exact in any float dtype; TPU's default-precision
-    # matmul feeds the MXU bf16 inputs (still exact for 0/1) with f32
-    # accumulation, and the CPU backend has no bf16 dot thunk.
+    # f32 storage: 0/1 is exact in any float dtype.
     # NOT lru_cached: under shard_map tracing, array creation returns a
     # trace-bound tracer — caching it leaks the tracer into later traces
     # (only the numpy matrix above is cached; this is a per-trace constant)
@@ -82,17 +79,14 @@ def _rsc_matrix_dev(k: int):
 
 def turbo_reencode_batch(bits: jnp.ndarray, k: int) -> jnp.ndarray:
     """(B, K) decoded codeblock bits -> (B, 3, K+4) d streams, numerically
-    identical to ``turbo_encode_batch`` (tests pin this) but two MXU
+    identical to ``turbo_encode_batch`` (tests pin this) but two
     matmuls instead of 2K sequential scan steps."""
-    import jax
     m = _rsc_matrix_dev(k)
     pi = jnp.asarray(qpp_interleaver(k))
-    # bf16 inputs on TPU (0/1 exact; MXU f32 accumulation; single-pass) —
-    # the f32-input matmul measured ~6 ms vs ~1 ms at the SIC batch shape.
-    # CPU keeps f32 (no bf16 dot thunk).
-    dt = jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32
-    bf = bits.astype(dt)
-    md = m.astype(dt)
+    # 0/1 operands with f32 accumulation: exact under any matmul precision
+    # (TF32 and bf16 represent 0 and 1 exactly; sums stay < 2^24)
+    bf = bits.astype(jnp.float32)
+    md = m
     o1 = jnp.mod(jnp.matmul(bf, md, preferred_element_type=jnp.float32), 2.0)
     o2 = jnp.mod(jnp.matmul(bf[:, pi], md,
                             preferred_element_type=jnp.float32), 2.0)

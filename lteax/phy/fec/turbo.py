@@ -3,8 +3,8 @@
 (reference capability: ``liblte/src/liblte_phy.cc :: turbo_encode`` /
 ``turbo_decode`` — sequential scalar C++ trellis loops.)
 
-TPU-native design
------------------
+Design
+------
 * Encoder: one ``lax.scan`` over K bits with a 3-bit register state,
   ``vmap``-batched over codeblocks.  Encoding is never the bottleneck.
 * Decoder: **parallel sliding-window max-log-MAP**.  The trellis recursions
@@ -13,7 +13,7 @@ TPU-native design
   decoded concurrently, with short acquisition warm-ups providing boundary
   metrics.  Sequential depth is O(W + ACQ) regardless of K; every scan step
   is an 8-state add-compare-select vectorized over
-  (batch x n_windows x 8 states x 2 branches) — pure VPU work with
+  (batch x n_windows x 8 states x 2 branches) — elementwise work with
   compiler-friendly static shapes.  This is the standard high-throughput
   turbo architecture (cf. TTA/ASIC decoders, PAPERS.md) recast as JAX.
 
@@ -36,8 +36,7 @@ import numpy as np
 from lteax.phy.tables.turbo_qpp import qpp_deinterleaver, qpp_interleaver
 
 NEG = np.float32(-1e9)  # host constant: a module-level jnp scalar would
-# eagerly initialize the accelerator backend at import time, breaking the
-# CLI apps' late platform selection (utils/platform.py)
+# initialize the accelerator backend at import time
 N_TAIL_D = 4  # each of the 3 d-streams carries K+4 bits (12 tail bits total)
 
 
@@ -165,7 +164,7 @@ def _unrolled_wiring():
 def _fused_sweeps(u: jnp.ndarray, v: jnp.ndarray, win: int, acq: int,
                   a_init=None, b_init=None):
     """Forward AND backward metrics in ONE scan (halves sequential steps —
-    the decoder is latency-bound on TPU, not compute-bound).
+    the recursion is latency-bound, not compute-bound).
 
     ``a_init``/``b_init`` (n_w, 8): window-boundary metrics from the
     previous turbo iteration (NII — next-iteration initialization).  With

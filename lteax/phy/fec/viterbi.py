@@ -3,7 +3,7 @@
 (reference capability: ``liblte/src/liblte_phy.cc :: viterbi_decode`` — a
 scalar C++ trellis loop.)
 
-TPU-native design: the add-compare-select step is vectorized over all 64
+Design: the add-compare-select step is vectorized over all 64
 states (and over a leading batch axis via ``vmap``); the time recursion is a
 ``lax.scan``.  Tail-biting is handled with a wrap-around pass (WAVA, 2
 passes): pass 1 from uniform metrics yields circularly-consistent start

@@ -4,7 +4,7 @@
 ``liblte/src/liblte_phy.cc`` — ``liblte_phy_map_crs``, the PBCH/PCFICH/
 PDCCH/PDSCH mapping loops inside each ``*_channel_encode``/``_decode``.)
 
-TPU-native design: every channel's RE set is a *static* function of
+Design: every channel's RE set is a *static* function of
 (PhyConfig, N_cell_ID, CFI, subframe, allocation), so all positions are
 precomputed host-side (numpy, cached) as flat indices ``sym * n_sc + k``
 into the flattened subframe grid.  Device code is pure gather/scatter with
@@ -288,8 +288,7 @@ def make_flat_extractor(idx: np.ndarray, n_rows: int, row_len: int):
     """Build a slice/reshape-based extractor equivalent to ``x[..., idx]``
     for a flat grid of shape (..., n_rows*row_len).
 
-    TPU gathers run near one element per cycle; the PDSCH RE pattern is
-    structured (whole symbols, or symbols with every 3rd subcarrier
+    The PDSCH RE pattern is structured (whole symbols, or symbols with every 3rd subcarrier
     reserved for CRS), so the same selection is expressible as static
     slices + strided column picks — pure layout ops at HBM bandwidth.
     Rows whose keep-set has no such structure fall back to a (small)

@@ -3,15 +3,16 @@
 (reference capability: ``liblte/src/liblte_phy.cc :: modulation_mapper``,
 ``modulation_demapper`` / ``get_soft_decision``.)
 
-TPU-native design: the mapper packs bit groups into symbol indices and does a
-single constellation-table gather; the demapper computes exact max-log LLRs
-via per-bit subset minima over the (≤64-point) constellation — one (N, M)
-distance matrix, fully fused elementwise + reductions on the VPU, batched
-over symbols.  LLR convention: L = log P(0)/P(1).
+Design: the mapper packs bit groups into symbol indices and does a single
+constellation-table gather; the demapper computes exact max-log LLRs via
+per-bit subset minima over the (<=64-point) constellation — elementwise
+distances and reductions that XLA fuses, batched over symbols.  LLR
+convention: L = log P(0)/P(1).
 """
 
 from __future__ import annotations
 
+import functools
 from functools import lru_cache
 
 import jax.numpy as jnp
@@ -61,9 +62,8 @@ def modulate_arith(bits: jnp.ndarray, scheme: str) -> jnp.ndarray:
     """bits (..., N*m) -> symbols (..., N) complex64, PURE-ELEMENTWISE.
 
     Same mapping as :func:`modulate`, but the 36.211 §7.1 Gray formulas are
-    evaluated arithmetically instead of via a constellation-table gather —
-    on TPU the (N,) int gather from the 64-entry table measured ~40 ms per
-    2.5M symbols in the MIMO SIC re-modulation; this form is VPU-only."""
+    evaluated arithmetically instead of via a constellation-table gather,
+    so the SIC re-modulation is one elementwise fusion."""
     m = BITS_PER_SYM[scheme]
     g = bits.reshape(*bits.shape[:-1], -1, m).astype(jnp.float32)
     s = 1.0 - 2.0 * g                                 # (+1 for bit 0)
@@ -162,3 +162,55 @@ def demodulate_maxlog(symbols: jnp.ndarray, scheme: str,
     if noise_var is not None:
         llr = llr / jnp.asarray(noise_var)[..., None]
     return llr.reshape(*symbols.shape[:-1], -1)
+
+
+def demap_planar(xr, xi, inv_nv, sgn_planar, scheme: str,
+                 out_dtype=jnp.float32):
+    """Max-log demap + LLR scaling + descramble with PLANAR output.
+
+    xr, xi, inv_nv: (B, N) equalized symbol I/Q and 1/effective noise (any
+    float dtype; the arithmetic runs in f32); sgn_planar: (m, Np) f32
+    descrambling signs in planar layout (:func:`planar_sgn_np`), Np >= N.
+    Returns (B, m, Np) LLRs: plane j holds bit j of every symbol, so the
+    rate de-matcher absorbs the bit interleave by remapping its gather
+    indices.  Columns past N read zero inputs and emit exact 0.0 (the
+    pipelines point untransmitted positions at such a column).
+
+    Same per-axis PAM subset-min as :func:`demodulate_maxlog` (QPSK, 16QAM
+    and 64QAM), multiplied by ``inv_nv`` instead of divided by the noise."""
+    assert scheme in ("qpsk", "16qam", "64qam"), scheme
+    pam, bit1 = _pam_axis(scheme)
+    ma = BITS_PER_SYM[scheme] // 2
+    npad = sgn_planar.shape[1]
+
+    def pad(x):
+        x = x.astype(jnp.float32)
+        return jnp.pad(x, ((0, 0), (0, npad - x.shape[1])))
+
+    scale = pad(inv_nv)
+    planes = [None] * (2 * ma)
+    for axis, y in ((0, pad(xr)), (1, pad(xi))):
+        d = [(y - float(s)) * (y - float(s)) for s in pam]
+        for j in range(ma):
+            d0 = functools.reduce(jnp.minimum,
+                                  [d[i] for i in range(len(pam)) if not bit1[j, i]])
+            d1 = functools.reduce(jnp.minimum,
+                                  [d[i] for i in range(len(pam)) if bit1[j, i]])
+            # bit order per symbol: (b0|I, b1|Q, b2|I, b3|Q, ...)
+            planes[2 * j + axis] = (d1 - d0) * scale
+    return (jnp.stack(planes, axis=1) * sgn_planar).astype(out_dtype)
+
+
+# bounded: c_init varies per (rnti, subframe, codeword) — a long-running
+# service building decoders for many RNTIs must not grow host memory
+# without bound (each entry is an (m, npad) f32 array)
+@lru_cache(maxsize=64)
+def planar_sgn_np(c_init: int, g: int, m: int, npad: int) -> np.ndarray:
+    """(m, npad) f32 scrambling signs in planar layout: plane j, column s
+    holds the sign of interleaved bit s*m + j."""
+    from lteax.phy.seq import scrambling_symbols_np
+    sgn = scrambling_symbols_np(c_init, g)            # (G,)
+    n = g // m
+    out = np.ones((m, npad), dtype=np.float32)
+    out[:, :n] = sgn.reshape(n, m).T
+    return out

@@ -3,9 +3,8 @@
 (reference capability: ``liblte/src/liblte_phy.cc :: symbols_to_samples`` /
 ``samples_to_symbols`` — per-symbol FFTW3F plans with hand-rolled CP copies.)
 
-TPU-native design: a whole subframe's 14 FFTs run as ONE batched
-``jnp.fft.fft`` (XLA-tiled), with CP handling expressed as static gathers —
-no per-symbol host loop, fully batchable over (subframe, carrier) leading
+Design: a whole subframe's 14 FFTs run as ONE batched ``jnp.fft.fft``,
+with CP handling expressed as static slices — no per-symbol host loop, fully batchable over (subframe, carrier) leading
 axes.  Normalisation is orthonormal (1/sqrt(N) both ways) so resource-element
 power is preserved.
 """
@@ -43,61 +42,15 @@ def subframe_to_samples(grid: jnp.ndarray, cfg: PhyConfig) -> jnp.ndarray:
     return jnp.concatenate(parts, axis=-1)
 
 
-def _cx_matmul(a, b, hi: bool):
-    """a @ b with the complex product split into 4 real MXU matmuls.
-    hi=False runs the TPU-native single-pass bf16 contraction (the OFDM
-    data path's quantization noise sits ~25 dB below channel noise at any
-    operating point); hi=True forces the f32-emulated HIGHEST passes."""
-    import jax
-    prec = jax.lax.Precision.HIGHEST if hi else None
-    ar, ai = jnp.real(jnp.asarray(a)), jnp.imag(jnp.asarray(a))
-    br, bi = jnp.real(jnp.asarray(b)), jnp.imag(jnp.asarray(b))
-    yr = jnp.matmul(ar, br, precision=prec) - jnp.matmul(ai, bi, precision=prec)
-    yi = jnp.matmul(ar, bi, precision=prec) + jnp.matmul(ai, br, precision=prec)
-    return (yr + 1j * yi).astype(jnp.complex64)
-
-
-def _ofdm_dft_factored(blocks: jnp.ndarray, cfg: PhyConfig,
-                       hi: bool = False) -> jnp.ndarray:
-    """Batched 2048-point DFT + sc-bin selection as two MXU matmuls.
-
-    XLA's TPU FFT measured 22 ms/batch at B=2304 (~12% of HBM light, r5
-    session-2 frontend_breakdown); the Cooley–Tukey N1·N2 split
-    (phy/dft.py identity, n = n1 + N1·n2, k = N2·k1 + k2) rides the MXU
-    instead, and the sc-bin selection gathers STRAIGHT from the stage-B
-    (k2, k1) output — the natural-order swapaxes relayout of the full
-    (..., n_fft) array never materializes."""
-    from lteax.phy.dft import _consts
-    n = cfg.n_fft
-    n1, n2, w1, w2, tw = _consts(n, False)
-    lead = blocks.shape[:-1]
-    v = blocks.reshape(*lead, n2, n1)        # v[n2, n1] = x[n1 + N1*n2]
-    a = _cx_matmul(w2, v, hi) * tw           # (..., k2, n1) + twiddle
-    c = _cx_matmul(a, w1, hi)                # (..., k2, k1); X[N2*k1+k2]
-    bins = np.asarray(cfg.sc_to_fft_bin)
-    bmap = jnp.asarray(((bins % n2) * n1 + bins // n2).astype(np.int32))
-    return c.reshape(*lead, n)[..., bmap] * np.float32(1 / np.sqrt(n))
-
-
-def samples_to_subframe(samples: jnp.ndarray, cfg: PhyConfig,
-                        dft: str | None = None) -> jnp.ndarray:
+def samples_to_subframe(samples: jnp.ndarray, cfg: PhyConfig) -> jnp.ndarray:
     """Time samples (..., n_samps_subframe) -> resource grid (..., n_sym, n_sc).
 
     Assumes the subframe boundary is sample 0 (sync already applied).
     Symbol blocks are cut with static slices (symbol starts are config
-    constants) — cheaper than a gather on TPU.
-
-    ``dft``: "fft" (XLA FFT), "factored" (Cooley–Tukey MXU matmuls,
-    single-pass bf16), "factored_hi" (same, HIGHEST precision); None
-    reads ``DecoderTuning.ofdm_dft``."""
+    constants)."""
     import jax
-    if dft is None:
-        from lteax.phy.tuning import DecoderTuning
-        dft = DecoderTuning.from_env().ofdm_dft
     blocks = jnp.stack(
         [jax.lax.slice_in_dim(samples, st, st + cfg.n_fft, axis=-1)
          for st in cfg.symbol_starts_subframe], axis=-2)  # (..., n_sym, n_fft)
-    if dft.startswith("factored"):
-        return _ofdm_dft_factored(blocks, cfg, hi=dft == "factored_hi")
     freq = jnp.fft.fft(blocks, axis=-1).astype(jnp.complex64) / np.sqrt(cfg.n_fft)
     return freq[..., jnp.asarray(cfg.sc_to_fft_bin)]

@@ -3,7 +3,7 @@
 (reference capability: ``liblte/src/liblte_phy.cc :: generate_prs_c``,
 ``generate_pss``, ``generate_sss``, ``generate_crs`` — bit-serial C loops.)
 
-TPU-native design for the Gold generator: both LFSRs are linear over GF(2),
+Design of the Gold generator: both LFSRs are linear over GF(2),
 so c(n) = x1(n+Nc) ^ x2(n+Nc) where the x2 part is linear in the 31 c_init
 bits.  We precompute (host, cached) the fixed x1 slice and a (31, N) basis
 matrix G with G[j] = the x2 output stream for unit init bit j.  On device:
@@ -11,7 +11,7 @@ matrix G with G[j] = the x2 output stream for unit init bit j.  On device:
     c = (x1_part + cinit_bits @ G) mod 2        — one int8 matmul,
 
 which makes scrambling-sequence generation batchable over (subframe, RNTI)
-with c_init as a *traced* value — no per-bit device loop, MXU-friendly.
+with c_init as a *traced* value — no per-bit device loop.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ liblte_phy_dl_find_coarse_timing_and_freq_offset``,
 ``liblte_phy_find_pss_and_fine_timing``, ``liblte_phy_find_sss`` — nested
 C++ correlation loops over the sample buffer.)
 
-TPU-native design: every correlator is expressed as either (a) a cumulative
+Design: every correlator is expressed as either (a) a cumulative
 -sum difference (CP autocorrelation — O(N) elementwise), or (b) one large
 frequency-domain multiply (PSS matched filter bank: one FFT of the capture,
 3 pointwise multiplies, one batched IFFT), or (c) a dense (62 x 168) matmul
@@ -95,35 +95,18 @@ def pss_time_filters(cfg: PhyConfig) -> np.ndarray:
 _PSS_FFT_MAX = 1 << 15   # one-shot FFT cap; larger captures go overlap-save
 
 
-def pss_correlate(x: jnp.ndarray, cfg: PhyConfig,
-                  use_pallas: bool | None = None) -> jnp.ndarray:
+def pss_correlate(x: jnp.ndarray, cfg: PhyConfig) -> jnp.ndarray:
     """Correlate x (..., L) with the 3 PSS replicas.
 
     Returns (..., 3, L) correlation magnitude² (peak index = PSS *start*
     sample).
 
-    On TPU (r4, SURVEY §7 step 6c): the Pallas Toeplitz-chunk matmul
-    correlator (`kernels/pss.py`) — time-domain matched filter on the MXU,
-    |corr|² formed in VMEM.  Elsewhere / ``use_pallas=False``: the FFT
-    path — short captures as one capture FFT + 3 pointwise multiplies +
-    batched IFFT; long captures overlap-save with fixed-size block FFTs
-    (the TPU backend cannot compile very large FFTs — KNOWN_ISSUES; same-
-    size blocks reuse one compiled FFT).  Dispatch mirrors
-    ``resample_poly``: concrete arrays dispatch on their actual device,
-    traced inputs on ``jax.default_backend()``.
+    Short captures: one capture FFT + 3 pointwise multiplies + batched
+    IFFT.  Long captures: overlap-save with fixed-size block FFTs, so the
+    transform size stays bounded and same-size blocks share one FFT plan.
     """
     l = x.shape[-1]
     filt = pss_time_filters(cfg)
-    if use_pallas is None:
-        devs = getattr(x, "devices", None)
-        if isinstance(x, jax.Array) and devs is not None and \
-                not isinstance(x, jax.core.Tracer):
-            use_pallas = all(d.platform == "tpu" for d in x.devices())
-        else:
-            use_pallas = jax.default_backend() == "tpu"
-    if use_pallas and l >= cfg.n_fft:
-        from lteax.kernels.pss import pss_corr_mag_pallas
-        return pss_corr_mag_pallas(x, filt)
     nfft = int(2 ** np.ceil(np.log2(l + cfg.n_fft)))
     if nfft <= _PSS_FFT_MAX:
         xf = jnp.fft.fft(x, n=nfft, axis=-1)
@@ -133,10 +116,6 @@ def pss_correlate(x: jnp.ndarray, cfg: PhyConfig,
         corr = cc[..., cfg.n_fft - 1: cfg.n_fft - 1 + l]
         return jnp.abs(corr) ** 2
     # ---- overlap-save: blocks of `step` new samples + (Nf-1) halo ----
-    # Block transforms use the factored matmul DFT (lteax.phy.dft): this
-    # backend's FFT only lowers up to 4096 points, and the MXU DFT costs
-    # N*(N1+N2) MACs — cheap at these sizes and any block length works.
-    from lteax.phy.dft import dft_factored
     nb = _PSS_FFT_MAX
     nf = cfg.n_fft
     step = nb - nf            # valid outputs per block (uses nf-1 halo)
@@ -147,12 +126,10 @@ def pss_correlate(x: jnp.ndarray, cfg: PhyConfig,
     blocks = jnp.stack(
         [jax.lax.slice_in_dim(xp, b * step, b * step + step + nf - 1,
                               axis=-1) for b in range(n_blk)], axis=-2)
-    blocks = jnp.pad(blocks, [(0, 0)] * (blocks.ndim - 1)
-                     + [(0, nb - blocks.shape[-1])])
-    xf = dft_factored(blocks)                        # (..., n_blk, nb)
+    xf = jnp.fft.fft(blocks, n=nb, axis=-1)          # (..., n_blk, nb)
     hf = np.fft.fft(np.conj(filt[:, ::-1]), n=nb, axis=-1).astype(np.complex64)
-    cc = dft_factored(xf[..., None, :, :] * jnp.asarray(hf)[:, None, :],
-                      inverse=True)
+    cc = jnp.fft.ifft(xf[..., None, :, :] * jnp.asarray(hf)[:, None, :],
+                      axis=-1)
     # valid region per block: lags nf-1 .. nf-1+step-1
     corr = cc[..., nf - 1: nf - 1 + step]            # (..., 3, n_blk, step)
     corr = corr.reshape(*corr.shape[:-2], n_blk * step)[..., :l]

@@ -1,9 +1,8 @@
-"""Frozen decoder tuning profile (VERDICT r2 item 6).
+"""Frozen decoder tuning profile.
 
-Every production-decoder numerics/behavior knob that was previously an
-``os.environ`` read inside the factory functions lives here as a versioned
-dataclass field.  The shipped defaults ARE the measured winning composition
-(PERF.md provenance on each field); env vars are demoted to *overrides* via
+Every production-decoder numerics/behavior knob lives here as a versioned
+dataclass field.  The shipped defaults are the composition of record; env
+vars are *overrides* via
 :meth:`DecoderTuning.from_env`, which every factory calls when no explicit
 profile is passed — so existing ``LTEAX_*`` A/B workflows keep working, but
 the composition of record is code+YAML, not ambient process state.
@@ -22,59 +21,49 @@ from dataclasses import dataclass, fields, replace
 class DecoderTuning:
     """Production decode-pipeline tuning.  Defaults = shipped profile.
 
-    Turbo kernel (kernels/turbo_mlm.py):
+    Turbo decode (kernels/turbo_mlm.py):
 
-    - ``win``/``acq``: max-log-MAP window / acquisition length.  acq=16
-      measured statistically identical to 32 at/below the MCS28 threshold
-      (NII seeds boundaries after iteration 1) and ~9% faster end-to-end.
-    - ``tb``: Pallas sublane tile (codeblocks per grid step).
-    - ``gb``: lane fold (codeblocks sharing the 128-lane axis); None = auto.
-    - ``mdtype``: trellis metric dtype — "bf16" (+7.5% headline, ~0.1 dB
-      threshold cost), "bf16_f32store", or "f32".
-    - ``fused``: fused second-half combine (half the VMEM stores).
-    - ``nofreeze``: drop the beta main-sweep freeze — LOSES near threshold
-      (batch-wide early stop pays 1-2 extra iterations); experiment only.
-    - ``pinpad``: pinned padding instead of freeze blends (DL 591->602,
-      MIMO 392->406 at 25 dB, threshold-neutral).
+    - ``win``/``acq``: max-log-MAP window / acquisition length (NII seeds
+      the window boundaries after iteration 1, so a short acquisition
+      suffices).
+    - ``mdtype``: trellis metric dtype — "bf16" or "f32".
+    - ``turbo_impl``: half-iteration implementation — "auto" (the Pallas
+      kernel on CUDA, the plain scan elsewhere), "kernel" or "plain".
     - ``earlystop``: CRC-based half-iteration early termination.
     - ``ext_scale``: extrinsic damping (max-log standard 0.75).
     - ``retry_m``: compacted-retry subbatch size (stragglers re-iterated in
       a gathered retry_m-block batch); 0 disables.  Per-pipeline overrides
       ``retry_m_dl``/``retry_m_mimo`` (None = inherit): the optimum tracks
-      the failure profile at the operating point — r3 sweep at 25 dB:
-      DL 64 (1041) > 128 (1027) > 256 (1017); MIMO 192 (613) > 128 >> 64;
-      UL 128 (947) > 64 (935).
+      the failure profile at the operating point.
     - ``retry_levels``: full-batch iterations checked for compaction before
-      falling back to the full-batch early-stop loop (2x2 MIMO at 25 dB
-      needs level 2: 4704/4992 blocks fail after iteration 1 but only 144
-      after iteration 2).
+      falling back to the full-batch early-stop loop (2x2 MIMO near its
+      operating point fails most blocks after iteration 1 but few after
+      iteration 2).
     - ``layout_glue``: keep the full-batch turbo iterations in the kernel's
       step-major layout (QPP interleave composed into gathers, layout-domain
-      CRC matmul) — kills the relayout copies that XProf measured at ~11 ms
-      of the 20 ms turbo stage at B=384 (r4).  The compacted retry subbatch
-      still uses the natural-order path.
+      CRC matmul) instead of relayouting around every half-iteration.
+    - ``planar_int8``: int8-quantized planar layout statics (one per-batch
+      scale) — halves the bytes of the four static gathers.
 
     Front-end / chest:
 
-    - ``mimo_chest``: "ls" (LS + linear interp; measured 497 vs 397 Mbit/s
-      for "mmse" at the 25 dB operating point) or "mmse" (host-Wiener).
-    - ``mimo_denoise``: pilot-level delay-domain CRS denoise — cuts the
-      reported iteration count but net-loses when the retry is compact
-      (NEXT.md r2); keep off by default.
+    - ``mimo_chest``: "ls" (LS + linear interp) or "mmse" (host-Wiener).
+    - ``mimo_denoise``: pilot-level delay-domain CRS denoise.
     - ``mimo_chest_nv``: static noise prior for the "mmse" Wiener matrix.
     - ``mimo_detector``: "mmse" (per-RE linear demix, both codewords in one
-      fused turbo batch) or "sic" (decode CW0 -> MXU re-encode -> cancel ->
-      CW1 on a clean MRC channel; falls back to MMSE LLRs per subframe when
-      CW0 fails).
-    - ``pallas_demap``: fused Pallas demap+descramble kernel with planar
-      output + remapped de-match gather (kernels/demap.py) — DL front
-      9.5 -> ~4.2 ms device at B=384; falls back to the XLA demap when the
-      rate match is non-injective (HARQ wrap) or the scheme is unsupported.
-    - ``struct_dematch``: structured (reshape-based) de-match.  The
-      composed-program TPU worker crash that originally forced this off
-      EXPIRED at the r3 canary run (scripts/backend_canaries.py); it now
-      stays off on merit — the gather measures faster in the production
-      composition (826 vs 863 Mbit/s same-session, KNOWN_ISSUES.md).
+      turbo batch) or "sic" (decode CW0 -> re-encode -> cancel -> CW1 on a
+      clean MRC channel; falls back to MMSE LLRs per subframe when CW0
+      fails).
+    - ``struct_dematch``: structured (reshape-based) de-match instead of
+      the gather.
+    - ``demap_in``: planar demap input staging dtype ("f32"/"bf16"); the
+      demap computes in f32 either way.
+    - ``ul_planar_boundary`` / ``mimo_planar_boundary``: defer the composed
+      de-match gather into the decode's static layout gathers, like DL's
+      planar boundary (MIMO: each codeword-subframe is one planar row).
+    - ``ul_dft``: SC-FDMA transform (de)precoding (phy/channels/pusch.py
+      ``_ul_dft``): "fft", "factored" or "matmul" (dense unitary DFT —
+      comparison only).
 
     Diagnostics:
 
@@ -84,12 +73,8 @@ class DecoderTuning:
 
     win: int = 128
     acq: int = 16
-    tb: int = 16
-    gb: int | None = None
     mdtype: str = "bf16"
-    fused: bool = True
-    nofreeze: bool = False
-    pinpad: bool = True
+    turbo_impl: str = "auto"
     earlystop: bool = True
     ext_scale: float = 0.75
     retry_m: int = 128
@@ -102,89 +87,19 @@ class DecoderTuning:
     mimo_chest_nv: float = 3e-3
     mimo_detector: str = "mmse"
     struct_dematch: bool = False
-    pallas_demap: bool = True
     print_iters: bool = False
-    # Layout-glue gather style (kernels/turbo_mlm.py): flat 1D-linearized
-    # index maps (r5) vs 2D-start gathers (r4).  Flat kills the 4D tile-pad
-    # reshape + relayout copies at DL/UL geometries (DL 1431->1501 at
-    # B=768, UL 1028->1059 at B=384, same-session A/Bs).  The early-r5
-    # MIMO loss (824 vs 961, an XLA fusion interaction) EXPIRED under the
-    # final r5 program (sublane-padded maps + zero-fold statics): flat now
-    # WINS on MIMO too — TM3 1007/1012 -> 1025/1037, TM4 SIC 591 -> 619,
-    # two A/B pairs each, 384/384 CRC — so both default on.
-    blane_flat: bool = True
-    blane_flat_mimo: bool = True
-    # Blane kernel micro-knobs (r5 roofline-driven — the combine loop is
-    # ~63% of kernel ops): ``blane_unroll`` = trellis steps per fori_loop
-    # body (bf16 renorm cadence stays every 4 steps regardless, so
-    # numerics are unroll-invariant).  16 measured best in isolation
-    # (3.76 -> 3.56 ms/half-iteration; 32 regresses) and +0.8% on the DL
-    # bench; UL/MIMO neutral-to-positive within run spread.
-    # ``combine_bf16`` = grouped path-metric sums/maxes in bf16 with only
-    # the 4 gamma-merge casts in f32 (16 -> 4 casts per combine) —
-    # measured SLOWER in isolation (3.60 vs 3.56 at unroll 16; the casts
-    # were not the bottleneck), default off.
-    blane_unroll: int = 16
-    combine_bf16: bool = False
-    # Demap kernel input staging dtype ("f32"/"bf16"): bf16 halves the
-    # front->demap HBM boundary (the kernel computes distances in f32
-    # either way; the demap roofline is HBM-bound at 23%).  DL bench
-    # 1657 -> 1694 (+2.2%), 768/768 CRC, iterations 2/6 unchanged;
-    # UL/MIMO neutral (their demap operands are per-subframe width).
-    # Threshold cost ~0.05 dB-class (TM4 stressed weak-layer config:
-    # MMSE 312/384 vs 324 at f32; BLER gates pass) — "f32" restores
-    # exact staging.
     demap_in: str = "bf16"
-    # UL planar stage boundary (r5 close-out): defer the composed
-    # channel-de-interleave/de-match gather into the decode's static
-    # layout gathers, like DL's planar boundary.  Lost at B=384 under
-    # the r4 program (906 vs 1140); EXPIRED under the final r5 program
-    # at the new B=640 optimum — 3 interleaved A/B pairs: composed
-    # 1511/1507/1352 vs planar 1766/1655/1722 Mbit/s (+14% median),
-    # 640/640 CRC; also softens the B=768 cliff (1078 -> 1218).
     ul_planar_boundary: bool = True
-    # MIMO analogue of ul_planar_boundary (each codeword-subframe is one
-    # planar row).  The r4 "MIMO planar boundary LOSES" negative (766 vs
-    # 976) EXPIRED at the r5 close-out optimum like UL's: 3 interleaved
-    # A/B pairs at B=256 — composed 967/1054/1079 vs planar
-    # 1186/1140/1198 Mbit/s (+13% median), 512/512 CRC.
     mimo_planar_boundary: bool = True
-    # OFDM demod DFT implementation (phy/ofdm.py::samples_to_subframe):
-    # "fft" (XLA FFT), "factored" (Cooley–Tukey N1·N2 MXU matmuls with
-    # the sc-bin selection fused into the stage-B gather, single-pass
-    # bf16 contractions), "factored_hi" (HIGHEST-precision passes).
-    # Same-session A/Bs (r5 session 2): DL 1776 -> 1830, UL 1578 -> 1628,
-    # MIMO 1190 -> 1237 Mbit/s, CRC clean everywhere; threshold cost is
-    # the ~0.05 dB class (21.5 dB: 759 vs 758 of 768; 20.5 dB: 732 vs
-    # 737) — same class as the accepted bf16 demap staging.  "fft"
-    # restores the exact front.
-    ofdm_dft: str = "factored"
-    # int8-quantized planar layout statics (r5 lever #1, NEXT.md): the 4
-    # static gathers that compose the rate de-match into the decode's
-    # layout are gather-random-access bound (~18% of the DL batch at the
-    # r5 trace).  Quantizing the planar demap output to int8 with one
-    # per-batch scale (qs = max|LLR|/127) halves the gather's operand
-    # reads and output writes; the dequant multiply fuses into the gather
-    # consumer.  int8 LLR input is standard in hardware turbo decoders;
-    # A/B'd at both operating points with the iteration counter before
-    # flipping the default.
     planar_int8: bool = False
-    # SC-FDMA transform (de)precoding implementation (phy/channels/pusch.py
-    # ``_ul_dft``): "fft" (XLA FFT; Bluestein for non-pow2 on TPU),
-    # "factored" (Cooley–Tukey N1·N2 MXU matmuls), "matmul" (dense unitary
-    # DFT — comparison only).  "fft" measured fastest on the UL bench.
     ul_dft: str = "fft"
 
-    # env var name -> (field, parser).  Kept 1:1 with the historical knobs.
+    # env var name -> (field, parser).
     _ENV = {
         "LTEAX_PALLAS_WIN": ("win", int),
         "LTEAX_PALLAS_ACQ": ("acq", int),
-        "LTEAX_PALLAS_TB": ("tb", int),
-        "LTEAX_PALLAS_GB": ("gb", lambda s: None if s == "auto" else int(s)),
         "LTEAX_PALLAS_DTYPE": ("mdtype", str),
-        "LTEAX_PALLAS_FUSED": ("fused", lambda s: s == "1"),
-        "LTEAX_PALLAS_NOFREEZE": ("nofreeze", lambda s: s == "1"),
-        "LTEAX_PALLAS_PINPAD": ("pinpad", lambda s: s == "1"),
+        "LTEAX_TURBO_IMPL": ("turbo_impl", str),
         "LTEAX_PALLAS_EARLYSTOP": ("earlystop", lambda s: s == "1"),
         "LTEAX_EXT_SCALE": ("ext_scale", float),
         "LTEAX_RETRY_M": ("retry_m", int),
@@ -197,19 +112,13 @@ class DecoderTuning:
         "LTEAX_MIMO_CHEST_NV": ("mimo_chest_nv", float),
         "LTEAX_MIMO_DETECTOR": ("mimo_detector", str),
         "LTEAX_STRUCT_DEMATCH": ("struct_dematch", lambda s: s == "1"),
-        "LTEAX_PALLAS_DEMAP": ("pallas_demap", lambda s: s == "1"),
         "LTEAX_PRINT_ITERS": ("print_iters", lambda s: s == "1"),
         "LTEAX_UL_DFT": ("ul_dft", str),
         "LTEAX_UL_PLANAR_BOUNDARY": ("ul_planar_boundary", lambda s: s == "1"),
         "LTEAX_MIMO_PLANAR_BOUNDARY": ("mimo_planar_boundary",
                                        lambda s: s == "1"),
-        "LTEAX_BLANE_FLAT": ("blane_flat", lambda s: s == "1"),
-        "LTEAX_BLANE_FLAT_MIMO": ("blane_flat_mimo", lambda s: s == "1"),
-        "LTEAX_BLANE_UNROLL": ("blane_unroll", int),
-        "LTEAX_COMBINE_BF16": ("combine_bf16", lambda s: s == "1"),
         "LTEAX_DEMAP_IN": ("demap_in", str),
         "LTEAX_PLANAR_INT8": ("planar_int8", lambda s: s == "1"),
-        "LTEAX_OFDM_DFT": ("ofdm_dft", str),
     }
 
     @classmethod
@@ -245,14 +154,9 @@ class DecoderTuning:
 
     def for_pipeline(self, kind: str) -> "DecoderTuning":
         """Resolve per-pipeline overrides ("dl" / "ul" / "mimo"):
-        retry_m_{dl,mimo} and blane_flat_mimo onto the base fields."""
-        t = self
+        retry_m_{dl,mimo} onto the base field."""
         ov = {"dl": self.retry_m_dl, "mimo": self.retry_m_mimo}.get(kind)
-        if ov is not None:
-            t = replace(t, retry_m=ov)
-        if kind == "mimo":
-            t = replace(t, blane_flat=self.blane_flat_mimo)
-        return t
+        return replace(self, retry_m=ov) if ov is not None else self
 
     def early_crc(self, cb_crc: bool) -> str | None:
         """CRC flavor for the kernel's early stop (None when disabled)."""

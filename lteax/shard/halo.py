@@ -3,8 +3,8 @@
 Filtering/correlation stages (CP autocorrelation window, PSS matched filter,
 polyphase resampler taps) need ``halo`` samples from the *next* time shard to
 produce valid outputs for their own region.  Under ``shard_map`` each shard
-appends its right neighbor's head via ``lax.ppermute`` over ICI — the
-TPU-native replacement for the reference's contiguous in-memory buffers.
+appends its right neighbor's head via ``lax.ppermute`` — the sharded
+replacement for the reference's contiguous in-memory buffers.
 
 Shard-invariance (decoded bits identical for 1 vs N shards) is the
 correctness oracle — tests/test_shard.py.

@@ -17,7 +17,7 @@ transcribed:
 and validated against the published test data (35.217-class vectors in
 tests/test_snow3g.py): core keystream, 128-EEA1 ciphertext.
 
-Host-side control-plane crypto (like security.py) — not a TPU kernel.
+Host-side control-plane crypto (like security.py) — not a device kernel.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Checkpoint / resume for long scans (SURVEY.md §5).
 
 (reference capability: the HSS user file + cnfg_db persistence are the
-reference's only state files; for the TPU batch framework the requirement
+reference's only state files; for this batch framework the requirement
 is idempotent per-capture-chunk work units so a restarted job re-processes
 only unfinished chunks.)
 

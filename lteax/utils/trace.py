@@ -2,7 +2,7 @@
 
 Usage:
     with stage("turbo_decode"):
-        ...jitted calls...          # appears as a named scope in XProf
+        ...jitted calls...          # appears as a named scope in the trace
 
     with profile_to("/tmp/trace"):  # TensorBoard-loadable trace
         run()
@@ -17,7 +17,7 @@ import jax
 
 
 def stage(name: str):
-    """Named scope visible in XLA/XProf traces (no-op cost outside capture)."""
+    """Named scope visible in jax.profiler traces (no-op cost outside capture)."""
     return jax.named_scope(name)
 
 

@@ -1,11 +1,12 @@
 #!/usr/bin/env python
-"""Summarize an XProf/Perfetto trace captured with LTEAX_TRACE=<dir>.
+"""Summarize a jax.profiler (Perfetto JSON) trace captured with
+LTEAX_TRACE=<dir>.
 
 Usage: python scripts/parse_trace.py <trace_dir_or_json.gz> [--top N]
        [--match SUBSTR]
 
 Finds the newest ``*.trace.json.gz`` under the directory, sums device-op
-durations by op name (pid 3 = the TPU device track on this backend), and
+durations by op name (pid = the busiest device track by default), and
 prints the top-N rows plus the total device time.  ``--match`` filters to
 ops whose name contains the substring (case-insensitive).
 
@@ -57,7 +58,7 @@ def main() -> None:
     if pid is None:
         dev = [(d, p) for p, d in by_pid.items()
                if "device" in pid_names.get(p, "").lower()
-               or "tpu" in pid_names.get(p, "").lower()]
+               or "gpu" in pid_names.get(p, "").lower()]
         pid = max(dev)[1] if dev else max((d, p) for p, d in by_pid.items())[1]
 
     durs = collections.defaultdict(float)

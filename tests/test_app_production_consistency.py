@@ -1,4 +1,4 @@
-"""App path == production path on the same capture (VERDICT r3 item 7).
+"""App path == production path on the same capture.
 
 ``file_scan`` decodes SI PDSCH through the XLA ``pdsch_decode_llrs`` path
 (defensible: per-SI-window geometry varies).  This gate generates a capture

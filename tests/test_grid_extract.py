@@ -1,7 +1,7 @@
 """make_flat_extractor: slice/strided-pick RE extraction == flat gather.
 
-The PDSCH front-end selects data REs out of the flat subframe grid; on TPU
-that selection is rewritten from a gather into static slices + periodic
+The PDSCH front-end selects data REs out of the flat subframe grid; that
+selection is rewritten from a gather into static slices + periodic
 column picks (lteax/phy/grid.py::make_flat_extractor).  These tests pin the
 rewrite to the gather semantics exactly, for real PDSCH patterns and for
 unstructured patterns that must fall back to per-row gathers.

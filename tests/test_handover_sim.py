@@ -1,4 +1,4 @@
-"""Two-cell intra-LTE handover over the live TTI loop (VERDICT r2 item 8):
+"""Two-cell intra-LTE handover over the live TTI loop:
 UE attaches on the SOURCE cell, receives an A3 measConfig over PDSCH,
 reports the TARGET cell stronger, gets the handover command
 (mobilityControlInfo + securityConfigHO) on the source cell's SRB1,

@@ -1,4 +1,4 @@
-"""Production HARQ incremental-redundancy combining (VERDICT r3 item 4).
+"""Production HARQ incremental-redundancy combining.
 
 ``make_batch_harq_decoder_pallas`` soft-combines rv=0 + rv=2
 (re)transmissions in the d domain (sum of per-tx injective de-match

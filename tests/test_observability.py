@@ -82,8 +82,8 @@ def test_debug_stream_server_pushes_events():
 
 
 def test_scanner_emits_cell_events(tmp_path):
-    """A scanner run produces a JSON-lines event log with the decoded cell
-    (VERDICT round-1 item 5 'done' criterion)."""
+    """A scanner run produces a JSON-lines event log with the decoded
+    cell."""
     from lteax.apps.file_gen import GenConfig, generate
     from lteax.apps.scanner import main as scanner_main
     from lteax.utils.metrics import EVENTS, METRICS

@@ -1,8 +1,9 @@
 """Production batch-decoder factories (shard/pipeline.py) end-to-end on CPU.
 
 Small-shape versions of the UL (PUSCH) and 2x2 TM3 MIMO bench chains:
-encode -> AWGN -> make_*_batch_decoder (interpret-mode Pallas) -> exact
-bit recovery.  These cover the factory plumbing the TPU benches drive
+encode -> AWGN -> make_*_batch_decoder (turbo kernel in the Pallas
+interpreter) -> exact bit recovery.  These cover the factory plumbing the
+benches drive
 (hoisted scrambling, de-interleave transpose, batch-level de-match,
 chest paths) at suite-friendly sizes."""
 
@@ -99,7 +100,7 @@ def test_mimo_batch_decoder_cpu():
 
 
 def test_mimo_sic_batch_decoder_cpu():
-    """SIC decoder (decode CW0 -> MXU re-encode -> cancel -> CW1 on MRC):
+    """SIC decoder (decode CW0 -> re-encode -> cancel -> CW1 on MRC):
     exact bits on the small 2x2 TM3 geometry, same contract as the fused
     MMSE decoder."""
     from tests.test_shard_pallas import _make_mimo_samples
@@ -130,13 +131,13 @@ def test_turbo_reencode_matches_scan_encoder():
 
 @pytest.mark.heavy
 def test_mimo_sic_beats_mmse_on_tm4_correlated_channel():
-    """The SIC operating regime (NEXT r3 item 6): TM4 fixed layer mapping
+    """The SIC operating regime: TM4 fixed layer mapping
     over a correlated, power-asymmetric channel.  At 16QAM mcs15 / 20 dB
     the linear MMSE demix loses the weak layer entirely (4/8 TBs) while
     SIC decodes all 8 exactly — decode the strong codeword, cancel, and
     the weak one sees a clean MRC channel.  (On TM3 the CDD alternation
     makes both codewords statistically identical and SIC is neutral —
-    PERF.md r3 analysis.)"""
+    the TM3 analysis.)"""
     from lteax.phy.config import PhyConfig
     from lteax.phy import seq, mimo
     from lteax.phy.grid import crs_flat_idx, crs_symbols, pdsch_flat_idx
@@ -246,7 +247,7 @@ def test_pallas_front_decodes_rv2():
 
 @pytest.mark.mid
 def test_layout_glue_matches_natural_path():
-    """The r4 layout-domain glue (step-major iteration, composed QPP
+    """The layout-domain glue (step-major iteration, composed QPP
     gathers, layout CRC matmul) must reproduce the natural-order path
     bit-for-bit, including when the compacted retry engages on blocks
     that fail iteration 1."""
@@ -268,10 +269,9 @@ def test_layout_glue_matches_natural_path():
     res = {}
     for lay in (False, True):
         out, it = turbo_decode_batch_pallas(
-            jnp.asarray(llr), k, n_iter=4, win=32, acq=8, tb=8,
-            early_crc="24A", mdtype="f32", fused=True, nofreeze=False,
-            pinpad=True, retry_m=2, retry_levels=2, layout=lay,
-            return_n_iter=True, interpret=True)
+            jnp.asarray(llr), k, n_iter=4, win=32, acq=8,
+            early_crc="24A", mdtype="f32", retry_m=2, retry_levels=2,
+            layout=lay, return_n_iter=True, interpret=True)
         res[lay] = np.asarray(out)
     assert np.array_equal(res[False], res[True])
     # and both recover the clean blocks exactly
@@ -294,20 +294,19 @@ def test_layout_glue_fixed_iteration_path():
     llr += rng.standard_normal(llr.shape).astype(np.float32) * 0.8
 
     outs = [np.asarray(turbo_decode_batch_pallas(
-        jnp.asarray(llr), k, n_iter=2, win=32, acq=8, tb=8,
-        early_crc=None, mdtype="f32", fused=True, nofreeze=False,
-        pinpad=True, retry_m=0, layout=lay, interpret=True))
+        jnp.asarray(llr), k, n_iter=2, win=32, acq=8,
+        early_crc=None, mdtype="f32", retry_m=0, layout=lay,
+        interpret=True))
         for lay in (False, True)]
     assert np.array_equal(outs[0], outs[1])
     assert np.array_equal(outs[1], bits)
 
 
 @pytest.mark.mid
-def test_layout_fixed_iteration_bf16_f32store_traces():
-    """Advisor r4 (medium): the fixed-iteration layout scan carried the
-    kernel-dtype l2 into a dt_e-typed carry slot, so layout=True +
-    early_crc=None + mdtype='bf16_f32store' failed at trace time with a
-    scan carry type mismatch.  Pin the combination end-to-end."""
+def test_layout_fixed_iteration_bf16_traces():
+    """layout=True + early_crc=None + mdtype='bf16': the fixed-iteration
+    layout scan carries the kernel-dtype l2 in a dt_e-typed slot; the
+    combination traces and decodes end-to-end."""
     from lteax.phy.fec.turbo import turbo_encode
     from lteax.kernels.turbo_mlm import turbo_decode_batch_pallas
 
@@ -318,51 +317,15 @@ def test_layout_fixed_iteration_bf16_f32store_traces():
                   for b in bits])
     llr = (1 - 2 * d.astype(np.float32)) * 3.0
     out = np.asarray(turbo_decode_batch_pallas(
-        jnp.asarray(llr), k, n_iter=2, win=32, acq=8, tb=8,
-        early_crc=None, mdtype="bf16_f32store", fused=True, nofreeze=False,
-        pinpad=True, retry_m=0, layout=True, interpret=True))
+        jnp.asarray(llr), k, n_iter=2, win=32, acq=8,
+        early_crc=None, mdtype="bf16", retry_m=0, layout=True,
+        interpret=True))
     assert np.array_equal(out, bits)
 
 
-def test_b576_fault_zone_guard_inactive():
-    """The r4 B≈576 layout fault EXPIRED r5 (C=7360/7424/7488 decode clean
-    under the r5 program on the real chip) — the construction guard must
-    stay inactive so no shape is silently demoted to the natural path.
-    The b576-layout-fault canary remains the regression probe."""
-    from lteax.kernels import turbo_mlm
-
-    for c in (7360, 7488, 4992, 8320, 14976):
-        assert not turbo_mlm._in_b576_fault_zone(c)
-
-
-@pytest.mark.mid
-def test_blane_flat_and_2d_gathers_match():
-    """The r5 flat (1D-linearized) layout gathers and the r4 2D-start
-    gathers are alternative lowerings of the same maps (per-pipeline
-    selection via DecoderTuning.blane_flat) — bits must be identical."""
-    from lteax.phy.fec.turbo import turbo_encode
-    from lteax.kernels.turbo_mlm import turbo_decode_batch_pallas
-
-    rng = np.random.default_rng(13)
-    k, c = 128, 5
-    bits = rng.integers(0, 2, (c, k)).astype(np.int32)
-    d = np.stack([np.asarray(turbo_encode(jnp.asarray(b), k))
-                  for b in bits])
-    llr = (1 - 2 * d.astype(np.float32)) * 2.0
-    llr[:1] += rng.standard_normal(llr[:1].shape).astype(np.float32) * 1.5
-
-    outs = [np.asarray(turbo_decode_batch_pallas(
-        jnp.asarray(llr), k, n_iter=3, win=32, acq=8, tb=8,
-        early_crc="24A", mdtype="f32", fused=True, nofreeze=False,
-        pinpad=True, retry_m=2, retry_levels=2, layout=True,
-        flat_maps=fm, interpret=True)) for fm in (True, False)]
-    assert np.array_equal(outs[0], outs[1])
-    assert np.array_equal(outs[0][1:], bits[1:])
-
-
 def test_ul_planar_boundary_matches_composed_path():
-    """r5: ul_planar_boundary defaults ON (UL 1507 -> 1722 at B=640), so
-    the composed-gather path lost its default coverage — pin that both
+    """ul_planar_boundary defaults ON, so the composed-gather path has no
+    default coverage — pin that both
     boundaries decode the same batch to the same bits (the planar_spec
     statics compose exactly the ul_inv gather the composed path applies
     at the stage boundary)."""
@@ -397,8 +360,8 @@ def test_ul_planar_boundary_matches_composed_path():
 
 
 def test_mimo_planar_boundary_matches_composed_path():
-    """MIMO analogue of the UL boundary-equality pin (r5:
-    mimo_planar_boundary defaults ON, 1054 -> 1186 at B=256)."""
+    """MIMO analogue of the UL boundary-equality pin
+    (mimo_planar_boundary defaults ON)."""
     from tests.test_shard_pallas import _make_mimo_samples
     from lteax.phy.tuning import DecoderTuning
 

@@ -1,4 +1,4 @@
-"""Config #5 end-to-end on the virtual mesh (VERDICT r1 item 8).
+"""Config #5 end-to-end on the virtual mesh.
 
 Exercises `configs/config5_scanner_pod.yaml` shapes on the 8-device CPU
 mesh: N carriers as a sharded channel axis (batched PSS prescan), the

@@ -1,9 +1,9 @@
-"""Sharded PRODUCTION (Pallas) decoders == single-device Pallas bits.
+"""Sharded PRODUCTION decoders == single-device production bits.
 
-VERDICT r2 item 1: the multi-chip path must be the production path.  These
-pin sharded-Pallas == unsharded-Pallas decoded bits for DL, UL and 2x2 MIMO
-on the 8-virtual-device CPU mesh, on 1x8 AND 2x4 mesh shapes (interpret-mode
-kernel; same code path the real chip runs modulo Mosaic lowering)."""
+The multi-device path must be the production path.  These pin sharded ==
+unsharded decoded bits for DL, UL and 2x2 MIMO on the 8-virtual-device CPU
+mesh, on 1x8 AND 2x4 mesh shapes (the turbo kernel in the Pallas
+interpreter; the GPU runs the same kernel compiled by Triton)."""
 
 import numpy as np
 import jax
@@ -15,14 +15,18 @@ from lteax.shard.pipeline import (
     make_pusch_batch_decoder, make_sharded_pusch_decoder,
     make_mimo_batch_decoder, make_sharded_mimo_decoder)
 
-from tests.test_shard import _make_pdsch_samples
 import pytest
+
+
+def _pdsch_samples(n_sf: int, seed: int):
+    from tests.test_shard import _make_pdsch_samples
+    return _make_pdsch_samples(n_sf, seed)
 
 
 @pytest.mark.heavy
 def test_sharded_pallas_dl_matches_single_device():
     (cfg, cid, ctrl, prbs, sf, rnti, geom, scheme, x, tb_ref) = \
-        _make_pdsch_samples(8, seed=11)
+        _pdsch_samples(8, seed=11)
     x = jnp.asarray(x)
     dec1 = make_batch_decoder_pallas(cfg, cid, ctrl, prbs, sf, rnti, geom,
                                      scheme, n_iter=4, interpret=True)
@@ -144,8 +148,7 @@ def test_sharded_pallas_mimo_matches_single_device():
 @pytest.mark.heavy
 def test_sharded_mimo_sic_dispatch_and_matches_single_device():
     """A tuning profile selecting mimo_detector="sic" must reach the SIC
-    decoder under shard_map (VERDICT r3 weak #1: the sharded factory used
-    to silently decode with MMSE) and produce single-device-SIC bits."""
+    decoder under shard_map and produce single-device-SIC bits."""
     from dataclasses import replace
     from lteax.phy.tuning import DecoderTuning
 
@@ -179,7 +182,7 @@ def test_sharded_acquire_decode_composed():
     from lteax.shard.pipeline import make_sharded_acquire_decoder_pallas
 
     (cfg, cid, ctrl, prbs, sf, rnti, geom, scheme, x, tb_ref) = \
-        _make_pdsch_samples(8, seed=13)
+        _pdsch_samples(8, seed=13)
     mesh = make_mesh(n_chan=1, n_time=8)
     dec = make_sharded_acquire_decoder_pallas(
         mesh, cfg, cid, ctrl, prbs, sf, rnti, geom, scheme, n_iter=4,

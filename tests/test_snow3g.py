@@ -1,4 +1,4 @@
-"""SNOW 3G / 128-EEA1 / 128-EIA1 (VERDICT r1 item 7).
+"""SNOW 3G / 128-EEA1 / 128-EIA1.
 
 Provenance: the 128-EEA1 test checks the full 256-bit ciphertext of
 33.401 C.1 test set 1 — an externally published vector (recalled, like the

@@ -2,7 +2,7 @@
 (Pallas turbo, shipped DecoderTuning: bf16 trellis, pinpad, early stop,
 compacted retry) is pinned against the stored curve (docs/bler_awgn.csv)
 with a ±0.5 dB tolerance that is derived PROGRAMMATICALLY from the stored
-points (VERDICT r3 item 6 — the gate reads the CSV, it does not restate it).
+points.
 
 Method: for each constellation the gate measures BLER at three stored
 SNR points — the waterfall TOP (stored BLER >= 0.8), the MID point

@@ -1,5 +1,5 @@
-"""DecoderTuning: the shipped profile is the source of truth (VERDICT r2
-item 6) — env vars are overrides, and the YAML profile reproduces the code
+"""DecoderTuning: the shipped profile is the source of truth — env vars
+are overrides, and the YAML profile reproduces the code
 defaults exactly."""
 
 import os
@@ -32,12 +32,12 @@ def test_env_overrides(monkeypatch):
     _clear_env(monkeypatch)
     monkeypatch.setenv("LTEAX_PALLAS_WIN", "64")
     monkeypatch.setenv("LTEAX_PALLAS_DTYPE", "f32")
-    monkeypatch.setenv("LTEAX_PALLAS_PINPAD", "0")
+    monkeypatch.setenv("LTEAX_LAYOUT_GLUE", "0")
     monkeypatch.setenv("LTEAX_RETRY_M", "0")
-    monkeypatch.setenv("LTEAX_PALLAS_GB", "auto")
+    monkeypatch.setenv("LTEAX_TURBO_IMPL", "plain")
     t = DecoderTuning.from_env()
-    assert (t.win, t.mdtype, t.pinpad, t.retry_m, t.gb) == \
-        (64, "f32", False, 0, None)
+    assert (t.win, t.mdtype, t.layout_glue, t.retry_m, t.turbo_impl) == \
+        (64, "f32", False, 0, "plain")
     # untouched fields keep defaults
     assert t.acq == DecoderTuning().acq
 

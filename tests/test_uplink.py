@@ -256,7 +256,7 @@ def test_pucch_format2ab():
 
 
 def test_pusch_decoder_estimated_noise_snr_sweep():
-    """VERDICT r2 item 4: the production UL decoder's per-subframe DM-RS
+    """the production UL decoder's per-subframe DM-RS
     noise estimator must hold across operating points WITHOUT retuning —
     exact decode at three SNRs spanning 20+ dB with noise_var=None."""
     import jax.numpy as jnp
